@@ -1,0 +1,16 @@
+"""Dynamics model registry.
+
+Only DynamicUnicycle2D is ported so far; ``get_model`` raises a
+``ValueError`` naming any other model as not yet ported.
+"""
+
+from safe_control_tpu_torch.core import spec as _spec
+from safe_control_tpu_torch.dynamics import base
+from safe_control_tpu_torch.dynamics import dynamic_unicycle2d
+
+base.register(_spec.DYNAMIC_UNICYCLE_2D, dynamic_unicycle2d)
+
+get_model = base.get_model
+MODEL_REGISTRY = base.MODEL_REGISTRY
+
+__all__ = ["get_model", "MODEL_REGISTRY", "base"]

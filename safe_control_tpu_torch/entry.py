@@ -1,0 +1,68 @@
+"""The port's main path: one batched DynamicUnicycle2D MPC-CBF control step.
+
+``build_step`` is the counterpart of ``__graft_entry__._build_step``: the
+same configuration (horizon 8, K=5 obstacle slots, the 8 outer x 3 Newton
+budget) and the same inputs, drawn from ``np.random.default_rng(0)`` in the
+same order, so the arrays equal the JAX ones bit for bit.  The step solves
+through ``mpc_cbf.solve_batch`` and integrates with ``model.step``; on a
+CUDA device with ``use_fused_kernel=True`` that launches the fused CUDA
+kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from safe_control_tpu_torch.core.spec import DYNAMIC_UNICYCLE_2D, make_spec
+from safe_control_tpu_torch.core.types import pad_obstacles
+from safe_control_tpu_torch.dynamics import get_model
+from safe_control_tpu_torch.solvers import mpc_cbf
+
+DT = 0.05
+
+
+def build_step(batch, horizon=8, num_obs=5, *, device, dtype=torch.float32,
+               use_fused_kernel=True):
+    """Return ``(control_step, (xs, goals, obs, u_prevs, Us))``.
+
+    ``control_step(xs, goals, obs, u_prevs, Us)`` returns
+    ``(x_next, u, U)``: the integrated next states, the first controls and
+    the solved control trajectories (the next step's warm start).
+    """
+    spec = make_spec(DYNAMIC_UNICYCLE_2D, a_max=1.0, w_max=0.5)
+    model = get_model(DYNAMIC_UNICYCLE_2D)
+    cfg = mpc_cbf.MPCConfig(
+        horizon=horizon, num_obs=num_obs, use_fused_kernel=use_fused_kernel
+    )
+    n_con = mpc_cbf._num_constraints(model, cfg)
+
+    def control_step(xs, goals, obs, u_prevs, Us):
+        """One batched MPC-CBF control step: solve + integrate."""
+        lam = torch.zeros((xs.shape[0], n_con), device=xs.device, dtype=xs.dtype)
+        st = mpc_cbf.MPCState(U=Us, lam=lam)
+        res = mpc_cbf.solve_batch(
+            DYNAMIC_UNICYCLE_2D, spec, xs, goals, obs, u_prevs, st, DT, cfg
+        )
+        x_next = model.step(xs, res.u, spec, DT)
+        return x_next, res.u, res.state.U
+
+    rng = np.random.default_rng(0)
+    xs_np = np.concatenate(
+        [
+            rng.uniform(0, 4, (batch, 2)),
+            rng.uniform(-np.pi, np.pi, (batch, 1)),
+            rng.uniform(0, 0.8, (batch, 1)),
+        ],
+        axis=1,
+    )
+    xs = torch.as_tensor(xs_np, dtype=dtype, device=device)
+    goals = torch.tensor([5.0, 5.0, 0.0, 0.0], dtype=dtype, device=device).repeat(batch, 1)
+    obs_one = pad_obstacles(
+        [[3.0, 3.0, 0.4, 0, 0, 0, 0], [2.0, 4.0, 0.3, 0, 0, 0, 0]],
+        num_obs, device=device, dtype=dtype,
+    )
+    obs = obs_one[None].repeat(batch, 1, 1)
+    u_prevs = torch.zeros((batch, 2), dtype=dtype, device=device)
+    Us = torch.zeros((batch, horizon, 2), dtype=dtype, device=device)
+    return control_step, (xs, goals, obs, u_prevs, Us)
