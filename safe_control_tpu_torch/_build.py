@@ -49,35 +49,56 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` into ``build/kernels/lib<name>-<hash>.so``."""
+def _library_path(name: str) -> Path:
+    # Every csrc/*.h enters every kernel's hash, so a changed or new header
+    # rebuilds all kernels once; that costs a build, never a wrong library.
     source = _CSRC / f"{name}.cu"
     deps = [source] + sorted(_CSRC.glob("*.h"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in deps:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        BUILD_INFO[name] = dict(path=str(out), seconds=0.0, cached=True, ptxas="")
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {source.name}:\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    report = (proc.stdout + proc.stderr).strip()
-    out.with_suffix(".log").write_text(report + "\n")
-    BUILD_INFO[name] = dict(path=str(out), seconds=seconds, cached=False, ptxas=report)
-    return out
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> dict:
+    """Compile ``csrc/<name>.cu`` into ``build/kernels/lib<name>-<hash>.so``
+    for each name, one nvcc process per source, all started together."""
+    outs, running = {}, {}
+    for name in names:
+        out = outs[name] = _library_path(name)
+        if out.exists():
+            if BUILD_INFO.get(name, {}).get("path") != str(out):  # keep this process's build
+                BUILD_INFO[name] = dict(path=str(out), seconds=0.0, cached=True, ptxas="")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        source = _CSRC / f"{name}.cu"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running[name] = (proc, tmp, time.perf_counter())
+    failures = []
+    for name, (proc, tmp, t0) in running.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
+                            f"{stdout}\n{stderr}")
+            continue
+        out = outs[name]
+        os.replace(tmp, out)
+        report = (stdout + stderr).strip()
+        out.with_suffix(".log").write_text(report + "\n")
+        BUILD_INFO[name] = dict(path=str(out), seconds=seconds, cached=False, ptxas=report)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return outs
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` (see :func:`build_all`)."""
+    return build_all([name])[name]
 
 
 def load_mpc_du_kernel() -> ctypes.CDLL:
@@ -91,4 +112,18 @@ def load_mpc_du_kernel() -> ctypes.CDLL:
         )
         lib.mpc_du_launch.restype = ctypes.c_int
         _LIBS["mpc_du_kernel"] = lib
+    return lib
+
+
+def load_qp_admm_kernel() -> ctypes.CDLL:
+    """The batched QP ADMM kernel library, built at first use."""
+    lib = _LIBS.get("qp_admm_kernel")
+    if lib is None:
+        lib = ctypes.CDLL(str(build("qp_admm_kernel")))
+        lib.qp_admm_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+            + [ctypes.c_void_p]
+        )
+        lib.qp_admm_launch.restype = ctypes.c_int
+        _LIBS["qp_admm_kernel"] = lib
     return lib

@@ -1,13 +1,18 @@
 """Dynamics model registry.
 
-Only DynamicUnicycle2D is ported so far; ``get_model`` raises a
-``ValueError`` naming any other model as not yet ported.
+Ported so far: SingleIntegrator2D, DoubleIntegrator2D and
+DynamicUnicycle2D; ``get_model`` raises a ``ValueError`` naming any other
+model as not yet ported.
 """
 
 from safe_control_tpu_torch.core import spec as _spec
 from safe_control_tpu_torch.dynamics import base
+from safe_control_tpu_torch.dynamics import double_integrator2d
 from safe_control_tpu_torch.dynamics import dynamic_unicycle2d
+from safe_control_tpu_torch.dynamics import single_integrator2d
 
+base.register(_spec.SINGLE_INTEGRATOR_2D, single_integrator2d)
+base.register(_spec.DOUBLE_INTEGRATOR_2D, double_integrator2d)
 base.register(_spec.DYNAMIC_UNICYCLE_2D, dynamic_unicycle2d)
 
 get_model = base.get_model

@@ -20,7 +20,7 @@ from safe_control_tpu_torch.core.types import angle_normalize  # re-export for m
 
 __all__ = [
     "angle_normalize", "masked_apply", "register", "get_model",
-    "MODEL_REGISTRY", "free_bounds",
+    "MODEL_REGISTRY", "free_bounds", "spec_vector",
 ]
 
 MODEL_REGISTRY: Dict[str, ModuleType] = {}
@@ -47,6 +47,16 @@ def masked_apply(x, fn, lo: int, hi: int):
     in-place write, so that ``torch.func`` transforms pass through it.
     """
     return torch.cat([x[..., :lo], fn(x[..., lo:hi]), x[..., hi:]], dim=-1)
+
+
+def spec_vector(values, *, device=None, dtype=torch.float32):
+    """Stack spec scalars into a vector on the last axis.
+
+    Floats give ``(len(values),)``; the ``(B,)`` tensor fields of a batched
+    spec give ``(B, len(values))``.
+    """
+    parts = [torch.as_tensor(v, device=device, dtype=dtype) for v in values]
+    return torch.stack(torch.broadcast_tensors(*parts), dim=-1)
 
 
 def free_bounds(n: int, *, device=None, dtype=torch.float32):

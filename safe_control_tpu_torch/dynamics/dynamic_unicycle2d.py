@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from safe_control_tpu_torch.dynamics.base import angle_normalize, masked_apply
+from safe_control_tpu_torch.dynamics.base import angle_normalize, masked_apply, spec_vector
 
 N_STATES = 4
 N_CONTROLS = 2
@@ -60,11 +60,11 @@ def nominal_input(x, goal, spec, d_min=0.05):
 
 
 def u_lb(spec, *, device=None, dtype=torch.float32):
-    return torch.tensor([-spec.a_max, -spec.w_max], device=device, dtype=dtype)
+    return spec_vector([-spec.a_max, -spec.w_max], device=device, dtype=dtype)
 
 
 def u_ub(spec, *, device=None, dtype=torch.float32):
-    return torch.tensor([spec.a_max, spec.w_max], device=device, dtype=dtype)
+    return spec_vector([spec.a_max, spec.w_max], device=device, dtype=dtype)
 
 
 def state_bounds(spec, *, device=None, dtype=torch.float32):

@@ -1,4 +1,4 @@
-"""The port's main path: one batched DynamicUnicycle2D MPC-CBF control step.
+"""The port's entry points: batched control steps on its main paths.
 
 ``build_step`` is the counterpart of ``__graft_entry__._build_step``: the
 same configuration (horizon 8, K=5 obstacle slots, the 8 outer x 3 Newton
@@ -7,6 +7,12 @@ same order, so the arrays equal the JAX ones bit for bit.  The step solves
 through ``mpc_cbf.solve_batch`` and integrates with ``model.step``; on a
 CUDA device with ``use_fused_kernel=True`` that launches the fused CUDA
 kernel.
+
+``build_cbf_qp_step`` is one batched CBF-QP safety-filter step
+(DoubleIntegrator2D by default, K=5, 1600 ADMM iterations): nominal input,
+``cbf_qp.solve_batch``, integrate.  With ``backend='auto'`` a CUDA float32
+batch of 128 or more launches the QP ADMM kernel.  The JAX package has no
+such entry; its tests compose the same step from JAX functions.
 """
 
 from __future__ import annotations
@@ -14,12 +20,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from safe_control_tpu_torch.core.spec import DYNAMIC_UNICYCLE_2D, make_spec
+from safe_control_tpu_torch.core.spec import (
+    DOUBLE_INTEGRATOR_2D,
+    DYNAMIC_UNICYCLE_2D,
+    make_spec,
+)
 from safe_control_tpu_torch.core.types import pad_obstacles
 from safe_control_tpu_torch.dynamics import get_model
-from safe_control_tpu_torch.solvers import mpc_cbf
+from safe_control_tpu_torch.solvers import cbf_qp, mpc_cbf
 
 DT = 0.05
+
+# The CBF-QP step's obstacles: two circles and one superellipsoid.
+CBF_QP_OBSTACLES = [
+    [3.0, 3.0, 0.4, 0.0, 0.0, 0.0, 0.0],
+    [2.0, 4.0, 0.3, 0.0, 0.0, 0.0, 0.0],
+    [1.5, 2.5, 0.5, 0.3, 4.0, 0.4, 1.0],
+]
 
 
 def build_step(batch, horizon=8, num_obs=5, *, device, dtype=torch.float32,
@@ -66,3 +83,37 @@ def build_step(batch, horizon=8, num_obs=5, *, device, dtype=torch.float32,
     u_prevs = torch.zeros((batch, 2), dtype=dtype, device=device)
     Us = torch.zeros((batch, horizon, 2), dtype=dtype, device=device)
     return control_step, (xs, goals, obs, u_prevs, Us)
+
+
+def build_cbf_qp_step(batch, num_obs=5, *, device, dtype=torch.float32,
+                      model_name=DOUBLE_INTEGRATOR_2D, mode="cbf", iters=1600,
+                      backend="auto"):
+    """Return ``(control_step, (xs, goals, obs))``.
+
+    ``control_step(xs, goals, obs)`` returns ``(x_next, u, feasible, h_min)``.
+    Inputs from ``np.random.default_rng(0)``: positions uniform in [0, 4]^2,
+    the remaining state components uniform in [-0.5, 0.5], goal (5, 5); the
+    obstacles are ``CBF_QP_OBSTACLES`` padded with dummies to ``num_obs``.
+    """
+    spec = make_spec(model_name)
+    model = get_model(model_name)
+
+    def control_step(xs, goals, obs):
+        """One batched CBF-QP control step: nominal input, filter, integrate."""
+        u_ref = model.nominal_input(xs, goals, spec)
+        res = cbf_qp.solve_batch(model_name, spec, xs, u_ref, obs, DT,
+                                 backend=backend, mode=mode, iters=iters)
+        x_next = model.step(xs, res.u, spec, DT)
+        return x_next, res.u, res.feasible, res.h_min
+
+    rng = np.random.default_rng(0)
+    n = model.N_STATES
+    xs_np = np.concatenate(
+        [rng.uniform(0, 4, (batch, 2)), rng.uniform(-0.5, 0.5, (batch, n - 2))], axis=1
+    )
+    xs = torch.as_tensor(xs_np, dtype=dtype, device=device)
+    goals = torch.zeros((batch, n), dtype=dtype, device=device)
+    goals[:, :2] = 5.0
+    obs_one = pad_obstacles(CBF_QP_OBSTACLES, num_obs, device=device, dtype=dtype)
+    obs = obs_one[None].repeat(batch, 1, 1)
+    return control_step, (xs, goals, obs)

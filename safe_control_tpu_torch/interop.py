@@ -17,13 +17,30 @@ from safe_control_tpu_torch.core.spec import RobotSpec
 from safe_control_tpu_torch.solvers.mpc_cbf import MPCConfig, MPCState
 
 
-def spec_from_jax(obj) -> RobotSpec:
-    """A :class:`RobotSpec` with every field of ``obj`` (read as ``float``)."""
+def spec_from_jax(obj, device=None, dtype=torch.float32) -> RobotSpec:
+    """A :class:`RobotSpec` with every field of ``obj``.
+
+    Scalar fields are read as ``float``; the array fields of a batched spec
+    become ``(B,)`` tensors of ``dtype`` on ``device``.
+    """
     values = {}
     for f in dataclasses.fields(RobotSpec):
         v = getattr(obj, f.name)
-        values[f.name] = v if f.name == "model" else float(v)
+        if f.name == "model":
+            values[f.name] = v
+        elif np.ndim(v) == 0:
+            values[f.name] = float(v)
+        else:
+            values[f.name] = torch.as_tensor(np.array(v), dtype=dtype, device=device)
     return RobotSpec(**values)
+
+
+def qp_from_numpy(P, q, A, l, u, device=None, dtype=torch.float32):
+    """The batched QP data ``(P, q, A, l, u)`` as tensors, from arrays."""
+    return tuple(
+        torch.as_tensor(np.asarray(a), dtype=dtype, device=device).contiguous()
+        for a in (P, q, A, l, u)
+    )
 
 
 def config_from_jax(cfg) -> MPCConfig:

@@ -1,4 +1,4 @@
-"""The port's main path against the JAX one, and ``chip_smoke.py`` without a card.
+"""The port's main paths against the JAX ones, and ``chip_smoke.py`` without a card.
 
 ``entry.build_step(batch=8, device="cpu")`` against
 ``__graft_entry__._build_step(batch=8)``: identical input arrays, then three
@@ -6,6 +6,13 @@ chained control steps, each side fed the same inputs (the JAX step's
 outputs) at every step; u, U and x_next must agree to 5e-3, the float32
 kernel-class envelope.  On the CPU the port's step runs the fused kernel's
 plain PyTorch version through ``mpc_cbf.solve_batch``.
+
+``entry.build_cbf_qp_step(16, device="cpu")`` against the same CBF-QP step
+composed from JAX functions (vmapped ``nominal_input``,
+``cbf_qp.solve_batch``, vmapped ``step``) on the same numpy inputs: three
+chained steps, u and x_next within 2e-3 (the JAX package's pallas-vs-xla
+envelope) and equal ``feasible`` flags, through the general path and the
+QP kernel's plain version.
 """
 
 import os
@@ -20,8 +27,13 @@ import pytest
 import torch
 
 from __graft_entry__ import _build_step
+from safe_control_tpu.core.spec import DOUBLE_INTEGRATOR_2D, make_spec
+from safe_control_tpu.core.types import pad_obstacles as jpad
+from safe_control_tpu.dynamics import get_model as jget_model
+from safe_control_tpu.solvers import cbf_qp as jcbf
 from safe_control_tpu_torch import entry
 from safe_control_tpu_torch.solvers import mpc_du_kernel as duk
+from safe_control_tpu_torch.solvers import qp_kernel as qpk
 
 torch.set_num_threads(1)
 
@@ -48,6 +60,49 @@ def test_build_step_matches_jax_build_step(use_fused_kernel):
             np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=5e-3, err_msg=name)
         xs, u_prevs, Us = want
     assert duk.LAUNCH_COUNT == before  # no kernel launch on the CPU
+
+
+def _jax_cbf_qp_step():
+    """The CBF-QP step composed from the JAX package's functions."""
+    spec = make_spec(DOUBLE_INTEGRATOR_2D)
+    model = jget_model(DOUBLE_INTEGRATOR_2D)
+
+    @jax.jit
+    def step(xs, goals, obs):
+        u_ref = jax.vmap(lambda x, g: model.nominal_input(x, g, spec))(xs, goals)
+        r = jcbf.solve_batch(DOUBLE_INTEGRATOR_2D, spec, xs, u_ref, obs, entry.DT, backend="xla")
+        x_next = jax.vmap(lambda x, u: model.step(x, u, spec, entry.DT))(xs, r.u)
+        return x_next, r.u, r.feasible, r.h_min
+
+    return step
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_build_cbf_qp_step_matches_jax_composition(backend):
+    B = 16
+    tstep, (xs, goals, obs) = entry.build_cbf_qp_step(B, device="cpu", backend=backend)
+    rng = np.random.default_rng(0)
+    want_xs = np.concatenate([rng.uniform(0, 4, (B, 2)), rng.uniform(-0.5, 0.5, (B, 2))], axis=1)
+    np.testing.assert_array_equal(xs.numpy(), want_xs.astype(np.float32))
+    np.testing.assert_array_equal(goals.numpy(), np.tile([5.0, 5.0, 0.0, 0.0], (B, 1)))
+    want_obs = np.asarray(jpad(jax.numpy.asarray(entry.CBF_QP_OBSTACLES, jax.numpy.float32), 5))
+    np.testing.assert_array_equal(obs.numpy(), np.tile(want_obs[None], (B, 1, 1)))
+    assert obs.shape == (B, 5, 7)  # n=2 variables, m=7 rows: 5 CBF rows and 2 box rows
+
+    jstep = _jax_cbf_qp_step()
+    x = xs.numpy()
+    before = qpk.LAUNCH_COUNT
+    for _ in range(3):
+        want = [np.asarray(a) for a in jstep(x, goals.numpy(), obs.numpy())]
+        got = tstep(torch.tensor(x), goals, obs)
+        for name, g, w in zip(("x_next", "u", "feasible", "h_min"), got, want):
+            assert g.shape == w.shape, name
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=0, atol=2e-3)
+        np.testing.assert_allclose(got[1].numpy(), want[1], rtol=0, atol=2e-3)
+        np.testing.assert_array_equal(got[2].numpy(), want[2])
+        np.testing.assert_allclose(got[3].numpy(), want[3], rtol=0, atol=2e-3)
+        x = want[0]
+    assert qpk.LAUNCH_COUNT == before  # no kernel launch on the CPU
 
 
 def _run_smoke(cwd):

@@ -1,0 +1,190 @@
+"""The QP ADMM kernel module: its plain PyTorch version, wrapper and source.
+
+On the CPU the wrapper ``solve_qp_batch`` runs ``solve_qp_batch_reference``,
+the plain PyTorch version of ``csrc/qp_admm_kernel.cu`` (the same
+operations in the same order).  It is held against the JAX
+``solve_qp_batch_pallas`` run in Pallas interpret mode, as the JAX
+package's own tests run it (``tests/test_qp_kernel.py``), at the full
+1600-iteration budget: |dx| < 1e-3 on problems both solve (two float32
+solves of one problem by different operation orders); and against the
+analytic optima at 1e-5.  The CUDA kernel itself is checked by the
+``gpu``-marked test on a card and by ``chip_smoke.py``; on a machine
+without JAX run that one with ``--noconftest``.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from safe_control_tpu_torch import interop
+from safe_control_tpu_torch.solvers import qp as tqp
+from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+torch.set_num_threads(1)
+
+CSRC = Path(qpk.__file__).resolve().parent.parent / "csrc"
+
+
+def random_qps(seed, B, n, m, one_sided=3):
+    """Random QPs (some infeasible), the JAX kernel test's construction."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(B, n, n))
+    P = M @ M.transpose(0, 2, 1) + np.eye(n)
+    q = rng.normal(size=(B, n))
+    A = rng.normal(size=(B, m, n))
+    c = rng.normal(size=(B, m))
+    l = c - rng.uniform(0.1, 2.0, size=(B, m))
+    u = c + rng.uniform(0.1, 2.0, size=(B, m))
+    u[:, :one_sided] = np.inf
+    return [a.astype(np.float32) for a in (P, q, A, l, u)]
+
+
+def cbf_qps(B=8, seed=5):
+    """CBF-QP-shaped problems: n=2, 3 CBF rows, 2 inert dummy rows, a box."""
+    rng = np.random.default_rng(seed)
+    a_rows = rng.normal(size=(B, 5, 2))
+    a_rows[:, 3:] = 0.0
+    b = rng.normal(size=(B, 5)) * 0.5
+    b[:, 3:] = 1.0
+    A = np.concatenate([a_rows, np.tile(np.eye(2), (B, 1, 1))], axis=1)
+    l = np.concatenate([-b, -np.ones((B, 2))], axis=1)
+    u = np.concatenate([np.full((B, 5), np.inf), np.ones((B, 2))], axis=1)
+    P = np.tile(2.0 * np.eye(2), (B, 1, 1))
+    q = -2.0 * rng.uniform(-1.5, 1.5, (B, 2))
+    return [a.astype(np.float32) for a in (P, q, A, l, u)]
+
+
+@pytest.mark.parametrize("case", ["random", "cbf"])
+def test_reference_matches_jax_pallas_kernel(case):
+    # JAX is imported here, not at the top, so that this file also collects
+    # on a machine without JAX, where the gpu-marked test runs.
+    import jax.numpy as jnp
+
+    from safe_control_tpu.solvers.qp_kernel import solve_qp_batch_pallas
+
+    qps = random_qps(0, 8, 3, 10) if case == "random" else cbf_qps()
+    want = solve_qp_batch_pallas(*(jnp.asarray(a) for a in qps), iters=1600, interpret=True)
+    want = [np.asarray(t) for t in want]
+    before = qpk.LAUNCH_COUNT
+    got = qpk.solve_qp_batch(*interop.qp_from_numpy(*qps))  # CPU: the plain version
+    assert qpk.LAUNCH_COUNT == before
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+    ok = (want[2] < 1e-4) & (got.prim_res.numpy() < 1e-4)
+    assert ok.sum() >= 4
+    assert np.abs(got.x.numpy() - want[0])[ok].max() < 1e-3
+    np.testing.assert_array_equal(got.prim_res.numpy() < 1e-3, want[2] < 1e-3)
+    ref = qpk.solve_qp_batch_reference(*interop.qp_from_numpy(*qps))
+    assert torch.equal(got.x, ref.x) and torch.equal(got.y, ref.y)
+
+
+def test_reference_matches_general_solve_qp():
+    """Kernel rho rule vs the general one: the same solution where both solve."""
+    P, q, A, l, u = random_qps(3, 16, 4, 12)
+    Ax = np.einsum("bmn,bn->bm", A, np.random.default_rng(4).normal(size=(16, 4)))
+    l, u = Ax - (u - l) / 2, Ax + (u - l) / 2  # feasible: the bounds bracket A x_star
+    u[:, :3] = np.inf
+    qps = interop.qp_from_numpy(P, q, A, l, u)
+    k = qpk.solve_qp_batch_reference(*qps, iters=800)
+    g = tqp.solve_qp(*qps, iters=800)
+    ok = (k.prim_res < 1e-4) & (g.prim_res < 1e-4)
+    assert ok.sum() >= 8
+    assert (k.x - g.x).abs()[ok].max() < 1e-3
+
+
+def test_analytic_projection_and_active_inequality():
+    # min ||x - t||^2 s.t. x in [-1, 1]^2  =>  clamp(t)
+    t = torch.tensor([[2.0, 0.3], [-3.0, 0.0], [0.5, -0.2], [9.0, -9.0]])
+    eye = torch.eye(2).expand(4, 2, 2)
+    sol = qpk.solve_qp_batch(2.0 * eye, -2.0 * t, eye, -torch.ones(4, 2), torch.ones(4, 2),
+                             iters=200)
+    np.testing.assert_allclose(sol.x.numpy(), np.clip(t.numpy(), -1, 1), atol=1e-5)
+    # min ||u||^2 s.t. a'u >= b, b > 0:  u = a b / |a|^2
+    a = torch.tensor([[1.0, 2.0]])
+    sol = qpk.solve_qp_batch(2.0 * torch.eye(2)[None], torch.zeros((1, 2)), a[:, None, :],
+                             torch.full((1, 1), 3.0), torch.full((1, 1), float("inf")), iters=300)
+    np.testing.assert_allclose(sol.x[0].numpy(), a[0].numpy() * 3.0 / 5.0, atol=1e-5)
+    assert sol.prim_res[0] < 1e-5
+
+
+def test_stage_remainder_is_dropped():
+    """per_stage = max(iters // 8, 1): 1607 iterations run as 1600, and fewer
+    than 8 as one sweep a stage."""
+    qps = interop.qp_from_numpy(*cbf_qps(4))
+    assert torch.equal(qpk.solve_qp_batch(*qps, iters=1607).x, qpk.solve_qp_batch(*qps).x)
+    assert torch.equal(qpk.solve_qp_batch(*qps, iters=3).x, qpk.solve_qp_batch(*qps, iters=8).x)
+
+
+def test_clip_on_infinite_and_inert_bounds():
+    """The kernel clips with fminf(fmaxf(v, lo), hi); on the CBF rows' +inf
+    upper bounds, the -inf of free rows and the -1e6 of inert rows after
+    equilibration that is what torch.clamp gives."""
+    v = torch.tensor([-2e6, -1e6, -3.0, 0.0, 2.5, 1e6, 3e7, float("inf"), float("-inf")])
+    for lo, hi in ((-1e6, float("inf")), (float("-inf"), float("inf")), (-1.0, 1.0),
+                   (float("-inf"), 2.0)):
+        lo_t, hi_t = torch.full_like(v, lo), torch.full_like(v, hi)
+        assert torch.equal(torch.clamp(v, lo_t, hi_t), torch.fmin(torch.fmax(v, lo_t), hi_t))
+    # an inert dummy row 0 u + 1 >= 0 equilibrates to l = -1e6, u = +inf
+    s = tqp.equilibrate(*interop.qp_from_numpy(*cbf_qps(2)))
+    assert torch.all(s.l[:, 3:5] == -1e6) and torch.isinf(s.u[:, :5]).all()
+
+
+def test_wrapper_rejects_bad_inputs():
+    good = list(interop.qp_from_numpy(*cbf_qps(4)))
+    bad = list(good)
+    bad[1] = good[1][:2]
+    with pytest.raises(ValueError, match="shape"):
+        qpk.solve_qp_batch(*bad)
+    wide = interop.qp_from_numpy(*random_qps(1, 2, 9, 12))
+    with pytest.raises(ValueError, match="n <= 8"):
+        qpk.solve_qp_batch(*wide)
+    mixed = list(good)
+    mixed[3] = torch.empty(good[3].shape, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        qpk.solve_qp_batch(*mixed)
+    mixed_dtype = list(good)
+    mixed_dtype[0] = good[0].double()
+    with pytest.raises(ValueError, match="float64"):
+        qpk.solve_qp_batch(*mixed_dtype)
+
+
+def test_cuda_source_constants_match_module():
+    text = (CSRC / "qp_admm_kernel.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", text))
+    assert int(consts["N_STAGES"]) == qpk.N_STAGES == 8
+    assert int(consts["MAX_N"]) == qpk.MAX_N
+    assert int(consts["THREADS"]) == 32  # B = 4096 covers 128 blocks on 132 SMs
+    for n in range(1, qpk.MAX_N + 1):  # every n the wrapper accepts is instantiated
+        assert f"launch<{n}>" in text
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch):
+    """On a card: the kernel against its plain version on the same inputs,
+    and the CUDA path never runs the plain sweep."""
+    ins = [t.to(cuda_device) for t in interop.qp_from_numpy(*cbf_qps(64))]
+    plain = qpk.solve_qp_batch_reference(*ins)
+    before = qpk.LAUNCH_COUNT
+
+    def refuse(*a, **k):
+        raise AssertionError("the CUDA path ran the plain version")
+
+    monkeypatch.setattr(qpk, "solve_qp_batch_reference", refuse)
+    monkeypatch.setattr(qpk, "_sweep_plain", refuse)
+    kern = qpk.solve_qp_batch(*ins)
+    torch.cuda.synchronize()
+    assert qpk.LAUNCH_COUNT == before + 1
+    assert (kern.x - plain.x).abs().max().item() < 1e-3
+    assert torch.equal(kern.prim_res < 1e-3, plain.prim_res < 1e-3)
+    with pytest.raises(NotImplementedError):
+        qpk.solve_qp_batch(*(t.double() for t in ins))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    return torch.device("cuda", 0)
