@@ -30,6 +30,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    plain version on the same inputs.
 8. Times the QP kernel and its plain version, and CBF-QP steps/s through
    the kernel and through the general path.
+9. Reports the generic fused MPC kernel's build: seconds, and registers,
+   stack, spills and dynamic shared memory per model instantiation.
+10. Holds the fused kernel against its plain version (max |du| < 5e-3,
+    max |dxs| < 5e-3, viol atol 1e-3, the JAX package's kernel-class
+    envelope): (a) Quad3D N=10 at B=4096, cold start and the warm start one
+    step later; (b) DynamicUnicycle2D N=8 on ``entry.build_step``'s cold
+    start at B=4096, against its plain version and against the DU kernel
+    (the first 64 problems within the envelope, and 95% of the batch: a few
+    cost-flat problems settle apart in float32); (c) VTOL2D N=16 (M=64, more than 48 KB of shared memory) at B=256;
+    (d) SingleIntegrator2D and DoubleIntegrator2D N=10 at B=64.  Prints
+    whether each pair is bit-identical.
+11. Drives the fused path, ``entry.build_fused_step(4096, device="cuda")``
+    (Quad3D N=10 through ``mpc_cbf.solve_dispatch``), for 5 warm-started
+    steps: finite outputs of the right shapes, at least 5 fused kernel
+    launches, each step's first 64 robots within 5e-3 of the plain version.
+12. Times the fused kernel and its plain version at B=4096, the fused path's
+    solves/s through the kernel and through the general solve, and the
+    single-robot latency: microseconds per solve over a chain of 25
+    warm-started B=1 ``solve_dispatch`` calls, Quad3D N=10 and DU N=8,
+    through the fused kernel and through the general solve.
 
 Every time is printed beside the card's name and power limit.  Prints one
 JSON line of per-kernel numbers, then, as the last line,
@@ -43,6 +63,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -55,6 +76,7 @@ N_GENERAL = 64  # problems checked against the general solve
 QP_X_TOL = 1e-3  # QP kernel vs its plain version at the main path's shapes
 QP_WIDE_TOL = 2e-3  # at m=153, and against the general solve_qp (JAX's envelope)
 QP_U_TOL = 1e-3  # CBF-QP path: first 64 robots vs the plain version
+CHAIN = 25  # warm-started B=1 solves timed for the single-robot latency
 
 
 def card_line() -> str:
@@ -80,6 +102,21 @@ def ptxas_summary(report: str) -> str:
             regs = ln.split("Used")[1].split(",")[0].strip()
             out.append(f"{name}: {regs}, {stack}")
     return " | ".join(out)
+
+
+def fused_ptxas(report: str) -> str:
+    """Registers, stack and spills of each model instantiation of the fused
+    kernel (the model is the mangled template argument)."""
+    out, model, frame = [], "", ""
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            found = re.search(r"IN9mpc_fused(\d+)", ln)
+            model = ln[found.end():found.end() + int(found.group(1))] if found else "?"
+        elif "bytes stack frame" in ln:
+            frame = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append((model, ln.split("Used")[1].split(",")[0].strip(), frame))
+    return out
 
 
 def max_where(t, mask) -> float:
@@ -110,11 +147,16 @@ def main() -> None:
     from safe_control_tpu_torch.core.spec import (
         DOUBLE_INTEGRATOR_2D,
         DYNAMIC_UNICYCLE_2D,
+        QUAD_3D,
+        SINGLE_INTEGRATOR_2D,
+        VTOL_2D,
         make_spec,
     )
+    from safe_control_tpu_torch.core.types import pad_obstacles
     from safe_control_tpu_torch.dynamics import get_model
     from safe_control_tpu_torch.solvers import cbf_qp, mpc_cbf, qp
     from safe_control_tpu_torch.solvers import mpc_du_kernel as duk
+    from safe_control_tpu_torch.solvers import mpc_fused as mf
     from safe_control_tpu_torch.solvers import qp_kernel as qpk
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -124,8 +166,8 @@ def main() -> None:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    # ---- phase 1: build (both kernels, one nvcc each, in parallel) -----------
-    _build.build_all(["mpc_du_kernel", "qp_admm_kernel"])
+    # ---- phase 1: build (all three kernels, one nvcc each, in parallel) -----
+    _build.build_all(["mpc_du_kernel", "qp_admm_kernel", "mpc_fused_kernel"])
     _build.load_mpc_du_kernel()
     info = _build.BUILD_INFO["mpc_du_kernel"]
     ptxas = [ln for ln in info["ptxas"].splitlines() if "mpc_du_kernel" in ln or "registers" in ln]
@@ -342,6 +384,174 @@ def main() -> None:
           f"{1e3 / cstep_ms_g:.1f} steps/s ({cstep_ms_g:.1f} ms/step) through the general "
           f"solve_qp")
 
+    # ---- phase 9: the fused MPC kernel's build ----------------------------------
+    _build.load_mpc_fused_kernel()
+    info = _build.BUILD_INFO["mpc_fused_kernel"]
+    q3_spec = make_spec(QUAD_3D)
+    q3_cfg = mpc_cbf.MPCConfig(horizon=10, num_obs=5)
+    vt_spec = make_spec(VTOL_2D)
+    vt_cfg = mpc_cbf.MPCConfig(horizon=16, num_obs=5)
+    du_cfg = mpc_cbf.MPCConfig(horizon=8, num_obs=5)
+    int_cfg = mpc_cbf.MPCConfig(horizon=10, num_obs=5)
+    shapes = {QUAD_3D: (q3_spec, q3_cfg), VTOL_2D: (vt_spec, vt_cfg), DYNAMIC_UNICYCLE_2D:
+              (spec, du_cfg), SINGLE_INTEGRATOR_2D: (make_spec(SINGLE_INTEGRATOR_2D), int_cfg),
+              DOUBLE_INTEGRATOR_2D: (make_spec(DOUBLE_INTEGRATOR_2D), int_cfg)}
+    report = []
+    for model, regs, frame in fused_ptxas(info["ptxas"]):
+        sp, cf = shapes[model]
+        smem = mf.shared_memory_bytes(model, sp, entry.DT, cf)
+        report.append(f"{model} N={cf.horizon}: {regs}, {frame}, {smem} bytes dynamic shared")
+    print(f"phase 9 build: mpc_fused_kernel {info['seconds']:.1f} s (cached={info['cached']}, "
+          f"built beside the other two); " + " | ".join(report))
+    if len(report) != len(mf.MODEL_IDS):
+        raise SystemExit("phase 9 failed: not every model has a fused kernel instantiation")
+
+    # ---- phase 10: fused kernel vs its plain version -------------------------------
+    fused_errs = []
+
+    def fused_pair(label, model, sp, args, cf):
+        kern = mf.solve_fused_batch(model, sp, *args, entry.DT, cf)
+        torch.cuda.synchronize()
+        plain = mf.solve_fused_batch_reference(model, sp, *args, entry.DT, cf)
+        torch.cuda.synchronize()
+        du_ = (kern.U - plain.U).abs().max().item()
+        dxs = (kern.xs - plain.xs).abs().max().item()
+        dv = (kern.viol - plain.viol).abs().max().item()
+        same = torch.equal(kern.U, plain.U) and torch.equal(kern.xs, plain.xs) and \
+            torch.equal(kern.viol, plain.viol)
+        fused_errs.append(max(du_, dxs, dv))
+        print(f"phase 10{label} fused kernel vs plain ({model} N={cf.horizon}, "
+              f"B={args[0].shape[0]}): max|du| {du_:.3e}, max|dxs| {dxs:.3e}, "
+              f"max|dviol| {dv:.3e}, bit-identical {same}, "
+              f"{int((kern.viol > VIOL_TOL).sum())} with viol > {VIOL_TOL}")
+        if not (du_ < U_TOL and dxs < U_TOL and dv <= VIOL_TOL):
+            raise SystemExit(f"phase 10{label} failed: fused kernel disagrees with its plain version")
+        return kern
+
+    fstep_k, fargs = entry.build_fused_step(BATCH, device=dev)
+    fused_pair("a", QUAD_3D, q3_spec, fargs, q3_cfg)
+    fx1, fu1, fU1 = fstep_k(*fargs)
+    fused_pair("a", QUAD_3D, q3_spec, (fx1, fargs[1], fargs[2], fu1, fU1), q3_cfg)
+
+    kern = fused_pair("b", DYNAMIC_UNICYCLE_2D, spec, (xs, goals, obs, u_prevs, Us), du_cfg)
+    b1 = duk.solve_du_batch(xs, goals, obs, u_prevs, Us, params)
+    du_model = get_model(DYNAMIC_UNICYCLE_2D)
+    roll = [xs]
+    for k in range(8):
+        roll.append(du_model.step(roll[-1], b1.U[:, k], spec, entry.DT))
+    torch.cuda.synchronize()
+    # Two float32 solvers of one algorithm in other operation orders: on the
+    # few problems whose cost is flat along a steering direction they settle
+    # apart (both as far from a float64 solve), so the gate holds on the 64
+    # problems that phase 2 holds the DU kernel to, and on a 95% share of the
+    # batch; the whole batch is reported.
+    per_du = (kern.U - b1.U).abs().amax((1, 2))
+    per_dxs = (kern.xs - torch.stack(roll, dim=1)).abs().amax((1, 2))
+    per_dv = (kern.viol - b1.viol).abs()
+    k = N_GENERAL
+    b13_du, b13_dxs, b13_dv = (t[:k].max().item() for t in (per_du, per_dxs, per_dv))
+    agree = (per_du < U_TOL) & (per_dxs < U_TOL) & (per_dv <= VIOL_TOL)
+    print(f"phase 10b fused kernel vs the DU kernel (cold start), first {k} problems: max|du| "
+          f"{b13_du:.3e}, max|dxs| {b13_dxs:.3e}, max|dviol| {b13_dv:.3e}; all {BATCH}: "
+          f"{int(agree.sum())} within the limits, max|du| {per_du.max().item():.3e}, median|du| "
+          f"{per_du.median().item():.3e}, max|dviol| {per_dv.max().item():.3e}, "
+          f"bit-identical {torch.equal(kern.U, b1.U)}")
+    if not (b13_du < U_TOL and b13_dxs < U_TOL and b13_dv <= VIOL_TOL
+            and int(agree.sum()) >= 0.95 * BATCH):
+        raise SystemExit("phase 10b failed: the fused kernel disagrees with the DU kernel")
+
+    rng = np.random.default_rng(11)
+    vb = 256
+    v_xs = torch.as_tensor(np.concatenate(
+        [rng.uniform(5, 10, (vb, 1)), rng.uniform(36, 40, (vb, 1)), rng.uniform(-0.1, 0.1, (vb, 1)),
+         rng.uniform(10, 13, (vb, 1)), rng.uniform(-0.5, 0.5, (vb, 1)), np.zeros((vb, 1))], axis=1),
+        dtype=torch.float32, device=dev)
+    v_goal = torch.tensor([80.0, 40.0, 0, 0, 0, 0], device=dev).repeat(vb, 1)
+    v_obs = pad_obstacles([[40.0, 35.0, 3.0, 0, 0, 0, 0]], 5, device=dev)[None].repeat(vb, 1, 1)
+    fused_pair("c", VTOL_2D, vt_spec, (v_xs, v_goal, v_obs, torch.zeros((vb, 4), device=dev),
+                                       torch.zeros((vb, 16, 4), device=dev)), vt_cfg)
+    ib = 64
+    two_obs = pad_obstacles([[2.5, 0.8, 0.4, 0, 0, 0, 0], [4.0, -0.4, 0.8, 0.4, 4.0, 0.4, 1.0]], 5,
+                            device=dev)[None].repeat(ib, 1, 1)
+    for model, nx in ((SINGLE_INTEGRATOR_2D, 2), (DOUBLE_INTEGRATOR_2D, 4)):
+        i_xs = torch.as_tensor(np.concatenate(
+            [rng.uniform(0, 3, (ib, 2)), rng.uniform(-0.5, 0.5, (ib, nx - 2))], axis=1),
+            dtype=torch.float32, device=dev)
+        i_goal = torch.zeros((ib, nx), device=dev)
+        i_goal[:, :2] = torch.tensor([5.0, 1.0], device=dev)
+        fused_pair("d", model, make_spec(model), (i_xs, i_goal, two_obs,
+                                                  torch.zeros((ib, 2), device=dev),
+                                                  torch.zeros((ib, 10, 2), device=dev)), int_cfg)
+    fused_max_err = max(fused_errs)
+
+    # ---- phase 11: the fused path ------------------------------------------------
+    mf.LAUNCH_COUNT = 0
+    x, up, U = fargs[0], fargs[3], fargs[4]
+    f_inputs = []
+    for _ in range(STEPS):
+        f_inputs.append((x, up, U))
+        x, up, U = fstep_k(x, fargs[1], fargs[2], up, U)
+    torch.cuda.synchronize()
+    fused_launches = mf.LAUNCH_COUNT
+    outs_ok = all(bool(torch.isfinite(t).all()) for t in (x, up, U))
+    shapes_ok = (tuple(x.shape), tuple(up.shape), tuple(U.shape)) == (
+        (BATCH, 12), (BATCH, 4), (BATCH, 10, 4))
+    print(f"phase 11 fused path: {STEPS} steps at B={BATCH}, fused kernel launches "
+          f"{fused_launches}, finite {outs_ok}, shapes {shapes_ok}")
+    if fused_launches < STEPS or not outs_ok or not shapes_ok:
+        raise SystemExit("phase 11 failed: the fused path did not run through the kernel cleanly")
+    k = N_GENERAL
+    dev_plain = []
+    for xi, upi, Ui in f_inputs:
+        ins = (xi[:k], fargs[1][:k], fargs[2][:k], upi[:k], Ui[:k])
+        _, u_k, _ = fstep_k(*ins)
+        u_p = mf.solve_fused_batch_reference(QUAD_3D, q3_spec, *ins, entry.DT, q3_cfg).u
+        dev_plain.append((u_k - u_p).abs().max().item())
+    torch.cuda.synchronize()
+    print(f"phase 11 per-step max|du| of {k} robots, fused path vs plain version: "
+          + ", ".join(f"{d:.3e}" for d in dev_plain))
+    if max(dev_plain) >= U_TOL:
+        raise SystemExit("phase 11 failed: the fused path disagrees with the kernel's plain version")
+
+    # ---- phase 12: fused times and single-robot latency ----------------------------
+    run_fk = lambda: mf.solve_fused_batch(QUAD_3D, q3_spec, *fargs, entry.DT, q3_cfg)
+    run_fp = lambda: mf.solve_fused_batch_reference(QUAD_3D, q3_spec, *fargs, entry.DT, q3_cfg)
+    run_fk()
+    f_ms = sync_time(run_fk, 5)
+    run_fp()
+    f_plain_ms = sync_time(run_fp, 1)
+    fstep_g, _ = entry.build_fused_step(BATCH, device=dev, use_fused_kernel=False)
+    fstep_kernel = lambda: fstep_k(*fargs)
+    fstep_general = lambda: fstep_g(*fargs)
+    fstep_kernel()
+    fstep_ms_k = sync_time(fstep_kernel, 5)
+    fstep_general()
+    fstep_ms_g = sync_time(fstep_general, 1)
+    print(f"phase 12 [{card}] B={BATCH} Quad3D N=10: fused kernel {f_ms:.3f} ms/solve-batch vs "
+          f"plain version {f_plain_ms:.1f} ms; fused path {BATCH / fstep_ms_k * 1e3:.1f} solves/s "
+          f"({fstep_ms_k:.3f} ms/step) through the kernel vs {BATCH / fstep_ms_g * 1e3:.1f} "
+          f"solves/s ({fstep_ms_g:.1f} ms/step) through the general solve")
+
+    def chain_us(model_name, horizon, fused):
+        """Microseconds per solve over CHAIN warm-started B=1 solve_dispatch calls."""
+        one_step, a = entry.build_fused_step(1, model_name=model_name, horizon=horizon,
+                                             device=dev, use_fused_kernel=fused)
+        one_step(*a)  # warm-up: first use of every launch path
+        x, up, U = a[0], a[3], a[4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CHAIN):
+            x, up, U = one_step(x, a[1], a[2], up, U)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / CHAIN * 1e6
+
+    lat = {(mname, fused): chain_us(mname, hz, fused)
+           for mname, hz in ((QUAD_3D, 10), (DYNAMIC_UNICYCLE_2D, 8)) for fused in (True, False)}
+    print(f"phase 12 [{card}] single robot, {CHAIN} chained warm-started steps (solve_dispatch "
+          f"+ model.step): Quad3D N=10 {lat[(QUAD_3D, True)]:.1f} us/solve through the fused "
+          f"kernel vs {lat[(QUAD_3D, False)]:.1f} us through the general solve; DU N=8 "
+          f"{lat[(DYNAMIC_UNICYCLE_2D, True)]:.1f} vs {lat[(DYNAMIC_UNICYCLE_2D, False)]:.1f} us")
+
     print(json.dumps({"kernels": [{
         "name": "mpc_du_kernel",
         "route": "cuda",
@@ -360,6 +570,15 @@ def main() -> None:
         "max_abs_err": max(qp_dx, qp_dy),
         "ms": qp_ms,
         "plain_ms": qp_plain_ms,
+    }, {
+        "name": "mpc_fused_kernel",
+        "route": "cuda",
+        "source": "safe_control_tpu_torch/csrc/mpc_fused_kernel.cu",
+        "replaces": "safe_control_tpu/solvers/mpc_fused.py:913",
+        "launches": fused_launches,
+        "max_abs_err": fused_max_err,
+        "ms": f_ms,
+        "plain_ms": f_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -52,6 +52,7 @@ def _nvcc() -> str:
 def _library_path(name: str) -> Path:
     # Every csrc/*.h enters every kernel's hash, so a changed or new header
     # rebuilds all kernels once; that costs a build, never a wrong library.
+    # (Headers are named *.h for that reason, and so ship as package data.)
     source = _CSRC / f"{name}.cu"
     deps = [source] + sorted(_CSRC.glob("*.h"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -126,4 +127,19 @@ def load_qp_admm_kernel() -> ctypes.CDLL:
         )
         lib.qp_admm_launch.restype = ctypes.c_int
         _LIBS["qp_admm_kernel"] = lib
+    return lib
+
+
+def load_mpc_fused_kernel() -> ctypes.CDLL:
+    """The generic fused MPC kernel library, built at first use."""
+    lib = _LIBS.get("mpc_fused_kernel")
+    if lib is None:
+        lib = ctypes.CDLL(str(build("mpc_fused_kernel")))
+        lib.mpc_fused_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        )
+        lib.mpc_fused_launch.restype = ctypes.c_int
+        lib.mpc_fused_shared_bytes.argtypes = [ctypes.c_int] * 5
+        lib.mpc_fused_shared_bytes.restype = ctypes.c_int
+        _LIBS["mpc_fused_kernel"] = lib
     return lib

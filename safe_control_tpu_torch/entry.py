@@ -8,6 +8,11 @@ through ``mpc_cbf.solve_batch`` and integrates with ``model.step``; on a
 CUDA device with ``use_fused_kernel=True`` that launches the fused CUDA
 kernel.
 
+``build_fused_step`` is one batched MPC-CBF control step through
+``mpc_cbf.solve_dispatch``, Quad3D at N=10 by default: on a CUDA device
+with ``use_fused_kernel=True`` the solve is one launch of the generic fused
+kernel (``solvers/mpc_fused.py``).
+
 ``build_cbf_qp_step`` is one batched CBF-QP safety-filter step
 (DoubleIntegrator2D by default, K=5, 1600 ADMM iterations): nominal input,
 ``cbf_qp.solve_batch``, integrate.  With ``backend='auto'`` a CUDA float32
@@ -23,6 +28,7 @@ import torch
 from safe_control_tpu_torch.core.spec import (
     DOUBLE_INTEGRATOR_2D,
     DYNAMIC_UNICYCLE_2D,
+    QUAD_3D,
     make_spec,
 )
 from safe_control_tpu_torch.core.types import pad_obstacles
@@ -82,6 +88,56 @@ def build_step(batch, horizon=8, num_obs=5, *, device, dtype=torch.float32,
     obs = obs_one[None].repeat(batch, 1, 1)
     u_prevs = torch.zeros((batch, 2), dtype=dtype, device=device)
     Us = torch.zeros((batch, horizon, 2), dtype=dtype, device=device)
+    return control_step, (xs, goals, obs, u_prevs, Us)
+
+
+def build_fused_step(batch, model_name=QUAD_3D, horizon=10, num_obs=5, *, device,
+                     dtype=torch.float32, use_fused_kernel=True):
+    """Return ``(control_step, (xs, goals, obs, u_prevs, Us))``.
+
+    ``control_step(xs, goals, obs, u_prevs, Us)`` solves through
+    ``mpc_cbf.solve_dispatch`` at the MPCConfig defaults (8 outer x 3 Newton)
+    and integrates with ``model.step``; it returns ``(x_next, u, U)``.
+
+    Quad3D inputs from ``np.random.default_rng(0)``: x, y uniform in [0, 3],
+    z uniform in [4.5, 5.5], every other component 0; goal (6, 2, 5, 0, ...);
+    the obstacle circle (3, 1, 0.5) padded with dummies to ``num_obs``.
+    DynamicUnicycle2D takes ``build_step``'s inputs, so that this path and
+    the DU kernel's see the same problems.
+    """
+    spec = make_spec(model_name, a_max=1.0, w_max=0.5) if model_name == DYNAMIC_UNICYCLE_2D \
+        else make_spec(model_name)
+    model = get_model(model_name)
+    cfg = mpc_cbf.MPCConfig(horizon=horizon, num_obs=num_obs, use_fused_kernel=use_fused_kernel)
+    n_con = mpc_cbf._num_constraints(model, cfg)
+
+    def control_step(xs, goals, obs, u_prevs, Us):
+        """One batched MPC-CBF control step: solve + integrate."""
+        lam = torch.zeros((xs.shape[0], n_con), device=xs.device, dtype=xs.dtype)
+        st = mpc_cbf.MPCState(U=Us, lam=lam)
+        res = mpc_cbf.solve_dispatch(model_name, spec, xs, goals, obs, u_prevs, st, DT, cfg)
+        x_next = model.step(xs, res.u, spec, DT)
+        return x_next, res.u, res.state.U
+
+    if model_name == DYNAMIC_UNICYCLE_2D:
+        _, args = build_step(batch, horizon, num_obs, device=device, dtype=dtype)
+        return control_step, args
+    if model_name != QUAD_3D:
+        raise ValueError(f"build_fused_step has inputs for Quad3D and DynamicUnicycle2D, "
+                         f"not {model_name}")
+    rng = np.random.default_rng(0)
+    n, m = model.N_STATES, model.N_CONTROLS
+    xs_np = np.zeros((batch, n))
+    xs_np[:, :2] = rng.uniform(0, 3, (batch, 2))
+    xs_np[:, 2] = rng.uniform(4.5, 5.5, batch)
+    xs = torch.as_tensor(xs_np, dtype=dtype, device=device)
+    goal = torch.zeros(n, dtype=dtype, device=device)
+    goal[:3] = torch.tensor([6.0, 2.0, 5.0], dtype=dtype, device=device)
+    goals = goal.repeat(batch, 1)
+    obs_one = pad_obstacles([[3.0, 1.0, 0.5, 0, 0, 0, 0]], num_obs, device=device, dtype=dtype)
+    obs = obs_one[None].repeat(batch, 1, 1)
+    u_prevs = torch.zeros((batch, m), dtype=dtype, device=device)
+    Us = torch.zeros((batch, horizon, m), dtype=dtype, device=device)
     return control_step, (xs, goals, obs, u_prevs, Us)
 
 

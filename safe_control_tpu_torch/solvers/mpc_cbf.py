@@ -17,17 +17,21 @@ noise-aware acceptance, and the multiplier update.
 
 ``solve_batch`` routes the DynamicUnicycle2D N=8, K=5 configuration to the
 fused kernel (``solvers/mpc_du_kernel.py``) when ``cfg.use_fused_kernel`` is
-set and the inputs are float32, as the JAX package does.
+set and the inputs are float32, as the JAX package does.  ``solve_dispatch``
+routes any configuration that ``mpc_fused.fused_available`` admits to the
+generic fused kernel (``solvers/mpc_fused.py``), and logs every fallback.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from safe_control_tpu_torch.barriers.hocbf import dt_h as hocbf_dt_h
+from safe_control_tpu_torch.barriers.hocbf import tensor_fields
 from safe_control_tpu_torch.core import spec as spec_mod
 from safe_control_tpu_torch.dynamics import get_model
 from safe_control_tpu_torch.dynamics.base import MODEL_REGISTRY
@@ -212,6 +216,61 @@ def solve_batch(model_name: str, spec, xs, goals, obs, u_prevs,
     return solve(model_name, spec, xs, goals, obs, u_prevs, mpc_state, dt, cfg)
 
 
+def solve_dispatch(model_name: str, spec, x0, goal, obs, u_prev, mpc_state: MPCState,
+                   dt: float, cfg: MPCConfig = MPCConfig()) -> MPCResult:
+    """``solve`` with opt-in routing to the generic fused kernel.
+
+    With ``cfg.use_fused_kernel``, float32 inputs, a configuration that
+    ``mpc_fused.fused_available`` admits and a spec of plain floats (the
+    kernel takes the spec's values as scalars), the whole batch runs in
+    ``mpc_fused.solve_fused_batch``: on CUDA tensors one kernel launch.  The
+    kernel path reports zero multipliers, which is equivalent because
+    ``solve`` cold-starts them.  Otherwise this is ``solve``, and each
+    distinct reason for falling back is logged once.  Nothing here catches
+    an error of the kernel's build or launch.
+    """
+    if cfg.use_fused_kernel and x0.dtype == torch.float32:
+        from safe_control_tpu_torch.solvers import mpc_fused
+
+        if cfg.newton_f64:
+            _log_fused_fallback(
+                "newton_f64 requested: the float32 fused kernel would drop the "
+                "explicit float64 Newton refinement; using the general solve")
+        elif not mpc_fused.fused_available(model_name, cfg):
+            _log_fused_fallback(
+                f"configuration unsupported by the fused kernel (model={model_name}, "
+                f"M={cfg.horizon}*m, optimal_decay={cfg.optimal_decay}, "
+                f"polish_iters={cfg.polish_iters})")
+        elif tensor_fields(spec):
+            _log_fused_fallback(
+                "robot spec holds per-robot tensors (the kernel takes the spec's "
+                "values as scalars); using the general solve")
+        else:
+            res = mpc_fused.solve_fused_batch(model_name, spec, x0, goal, obs, u_prev,
+                                              mpc_state.U, dt, cfg)
+            return MPCResult(
+                u=res.u,
+                state=MPCState(U=res.U, lam=torch.zeros_like(mpc_state.lam)),
+                xs=res.xs,
+                feasible=res.viol <= cfg.viol_tol,
+                viol=res.viol,
+            )
+    return solve(model_name, spec, x0, goal, obs, u_prev, mpc_state, dt, cfg)
+
+
+_FUSED_FALLBACK_SEEN: set = set()
+
+
+def _log_fused_fallback(reason: str) -> None:
+    """Log each distinct fallback reason once per process, so that a hot
+    control loop does not repeat it every period."""
+    if reason in _FUSED_FALLBACK_SEEN:
+        return
+    _FUSED_FALLBACK_SEEN.add(reason)
+    logging.getLogger("safe_control_tpu_torch.solvers").warning(
+        "fused-kernel dispatch fell back to the general solve: %s", reason)
+
+
 def _jvp_jacobian(fn, Uf):
     """Primal value and forward-mode Jacobian of a batched map.
 
@@ -238,8 +297,6 @@ def solve(model_name: str, spec, x0, goal, obs, u_prev, mpc_state: MPCState,
     """
     _check_supported(cfg)
     model = get_model(model_name)
-    if model.REL_DEG != 2:
-        raise NotImplementedError("only relative-degree-2 models are ported")
     N, n, m = cfg.horizon, model.N_STATES, model.N_CONTROLS
     B, D = x0.shape[0], cfg.horizon * model.N_CONTROLS
     dtype, device = x0.dtype, x0.device
@@ -281,20 +338,24 @@ def solve(model_name: str, spec, x0, goal, obs, u_prev, mpc_state: MPCState,
     def constraints(U):
         """All inequality constraints c(U) >= 0, fixed shape.
 
-        The CBF row of stage k is ddh + (a1+a2) dh + a1 a2 h_k over
-        h(x_k), h(x_{k+1}) and h(x2_k) with x2_k = step(x_{k+1}, u_k) (the
-        same u_k, not x_{k+2}); h of the rollout is shared between stages.
+        Relative degree 1: the CBF row of stage k is dh + alpha h_k.
+        Relative degree 2: ddh + (a1+a2) dh + a1 a2 h_k over h(x_k),
+        h(x_{k+1}) and h(x2_k) with x2_k = step(x_{k+1}, u_k) (the same
+        u_k, not x_{k+2}).  h of the rollout is shared between stages.
         """
         xs = rollout(U)
         x0_b = x0.expand(xs.shape[:-2] + (n,))[..., None, :]
         xs_full = torch.cat([x0_b, xs], dim=-2)  # (..., N+1, n)
         H = h_all(xs_full)  # (..., N+1, K)
         h_k, h_k1 = H[..., :N, :], H[..., 1:, :]
-        x2 = model.step(xs_full[..., 1:, :], U, spec, dt)  # (..., N, n)
-        H2 = h_all(x2)
-        d_h = h_k1 - h_k
-        dd_h = H2 - 2.0 * h_k1 + h_k
-        cbf = dd_h + (a1 + a2) * d_h + a1 * a2 * h_k
+        if model.REL_DEG == 1:
+            cbf = (h_k1 - h_k) + spec.mpc_cbf_alpha * h_k
+        else:
+            x2 = model.step(xs_full[..., 1:, :], U, spec, dt)  # (..., N, n)
+            H2 = h_all(x2)
+            d_h = h_k1 - h_k
+            dd_h = H2 - 2.0 * h_k1 + h_k
+            cbf = dd_h + (a1 + a2) * d_h + a1 * a2 * h_k
         cons = [cbf.reshape(U.shape[:-2] + (N * cfg.num_obs,))]
         for i in bounded_idx:
             cons.append(ub_x[i] - xs[..., i])  # upper

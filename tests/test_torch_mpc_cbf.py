@@ -1,5 +1,9 @@
 """Port parity: the general MPC-CBF solve (``solvers/mpc_cbf.solve``).
 
+Relative degree 1 (Quad3D, RK4, the dh + alpha h row) is held to the JAX
+float64 solve at 1e-6 on four spread starts with a random warm start, N=5,
+the full budget.  Relative degree 2 is the DynamicUnicycle2D batch below.
+
 Sixteen DynamicUnicycle2D problems at N=8, K=5 and the full 8 outer x 3
 Newton budget, with a circle obstacle close enough to be active, a
 superellipsoid row and dummy rows, and a non-zero warm start; made from a
@@ -25,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from safe_control_tpu.core.spec import DYNAMIC_UNICYCLE_2D, make_spec
+from safe_control_tpu.core.spec import DYNAMIC_UNICYCLE_2D, QUAD_3D, make_spec
 from safe_control_tpu.core.types import pad_obstacles
 from safe_control_tpu.solvers import mpc_cbf as jmpc
 from safe_control_tpu_torch import interop
@@ -140,3 +144,40 @@ def test_structure_queries_match_jax():
     assert tmpc._num_constraints(tm, TCFG) == jmpc._num_constraints(jm, JCFG) == 56
     for got, want in zip(tmpc.mpc_weights(DYNAMIC_UNICYCLE_2D), jmpc.mpc_weights(DYNAMIC_UNICYCLE_2D)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_solve_relative_degree_1_quad3d_f64_matches_jax_f64():
+    n5 = 5
+    rng = np.random.default_rng(3)
+    Bq = 4
+    xs = np.zeros((Bq, 12))
+    xs[:, :2] = rng.uniform(0, 3, (Bq, 2))
+    xs[:, 2] = rng.uniform(4.5, 5.5, Bq)
+    xs[:, 6:9] = rng.uniform(-0.5, 0.5, (Bq, 3))
+    goals = np.zeros((Bq, 12))
+    goals[:, :3] = [6.0, 2.0, 5.0]
+    obs = np.tile(np.asarray(pad_obstacles(jnp.asarray(
+        [[3.0, 1.0, 0.5, 0, 0, 0, 0], [1.5, 2.0, 0.4, 0, 0, 0, 0]], jnp.float32), 5))[None],
+        (Bq, 1, 1))
+    ups = rng.uniform(-1, 1, (Bq, 4))
+    Uw = rng.uniform(-2, 2, (Bq, n5, 4))
+    jspec = make_spec(QUAD_3D)
+    jcfg = jmpc.MPCConfig(horizon=n5, num_obs=5)
+    n_con = jmpc._num_constraints(jmpc.get_model(QUAD_3D), jcfg)
+
+    def one(x, goal, ob, up, U):
+        r = jmpc.solve(QUAD_3D, jspec, x, goal, ob, up,
+                       jmpc.MPCState(U=U, lam=jnp.zeros((n_con,), jnp.float64)), DT, jcfg)
+        return r.u, r.viol, r.xs
+
+    with jax.enable_x64(True):
+        u_ref, viol_ref, xs_ref = (np.asarray(a) for a in jax.jit(jax.vmap(one))(
+            *(jnp.asarray(a, jnp.float64) for a in (xs, goals, obs, ups, Uw))))
+    tcfg = interop.config_from_jax(jcfg)
+    targs = [torch.as_tensor(a, dtype=torch.float64) for a in (xs, goals, obs, ups, Uw)]
+    st = tmpc.init_state(QUAD_3D, tcfg, Bq, dtype=torch.float64)._replace(U=targs[4])
+    res = tmpc.solve(QUAD_3D, interop.spec_from_jax(jspec), *targs[:4], st, DT, tcfg)
+    assert np.abs(res.u.numpy() - u_ref).max() <= 1e-6
+    assert np.abs(res.viol.numpy() - viol_ref).max() <= 1e-6
+    assert np.abs(res.xs.numpy() - xs_ref).max() <= 1e-6
+    assert res.state.lam.shape == (Bq, n5 * 5)
