@@ -3,19 +3,26 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and CUDA
-   versions, and builds both CUDA kernels from ``csrc/`` (one nvcc each,
-   started together); reports the fused DU MPC kernel's build.
-2. Holds the DU kernel against its plain PyTorch version on the card at
-   B=4096 with the main path's inputs and the full 8x3 budget
-   (max |du| < 5e-3, viol atol 1e-3), and 64 problems against the general
-   ``mpc_cbf.solve``.
+   versions, and builds the three CUDA kernels from ``csrc/`` (one nvcc
+   each, started together); reports the fused DU MPC kernel's build
+   (registers, stack frame and spills from ptxas) and its launch shape.
+2. Holds the DU kernel against its plain PyTorch version on the card with
+   the main path's inputs and the full 8x3 budget (max |du| < 5e-3, viol
+   atol 1e-3): at B=4096, cold start and the warm start one step later, and
+   on ragged batches, B=1 and B=17 (a partly filled warp and block) and
+   B=4097; prints whether each pair is bit-identical.  Then 64 problems
+   against the general ``mpc_cbf.solve``.
 3. Drives the MPC-CBF main path, ``entry.build_step(batch=4096,
    device="cuda")``, for 5 warm-started steps; every output must be finite,
    the kernel's launch count must rise by at least 5, and on each step the
    first 64 robots' controls must agree with the kernel's plain version
    given the same inputs.
 4. Times the DU kernel and its plain version, and solves/s of the main path
-   through the kernel and through the general solve.
+   through the kernel and through the general solve; the kernel alone at
+   B=1 (one problem's critical path) and B=16384 (a full card); and at
+   B=4096 its operation count (the rho Jc'Jc updates counted from the plain
+   version's activation tests on these inputs), its bound at 67 TFLOP/s and
+   the share of it reached.
 5. Reports the QP ADMM kernel's build (seconds, ptxas registers and stack).
 6. Holds the QP kernel against its plain version: (a) the B=4096
    DoubleIntegrator2D CBF-QPs of ``entry.build_cbf_qp_step`` at 1600
@@ -29,7 +36,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    QP kernel launches, and each step's first 64 robots within 1e-3 of the
    plain version on the same inputs.
 8. Times the QP kernel and its plain version, and CBF-QP steps/s through
-   the kernel and through the general path.
+   the kernel and through the general path; the kernel's operation count,
+   bound and share reached.
 9. Reports the generic fused MPC kernel's build: seconds, and registers,
    stack, spills and dynamic shared memory per model instantiation.
 10. Holds the fused kernel against its plain version (max |du| < 5e-3,
@@ -46,13 +54,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
     steps: finite outputs of the right shapes, at least 5 fused kernel
     launches, each step's first 64 robots within 5e-3 of the plain version.
 12. Times the fused kernel and its plain version at B=4096, the fused path's
-    solves/s through the kernel and through the general solve, and the
-    single-robot latency: microseconds per solve over a chain of 25
-    warm-started B=1 ``solve_dispatch`` calls, Quad3D N=10 and DU N=8,
-    through the fused kernel and through the general solve.
+    solves/s through the kernel and through the general solve, the kernel's
+    operation count, bound and share reached (active rows counted in phase
+    10a), and the single-robot latency: microseconds per solve over a chain
+    of warm-started B=1 ``solve_dispatch`` calls, Quad3D N=10 and DU N=8,
+    25 through the fused kernel and 5 through the general solve (seconds a
+    solve, host-bound).
 
 Every time is printed beside the card's name and power limit.  Prints one
-JSON line of per-kernel numbers, then, as the last line,
+JSON line of per-kernel numbers (with each kernel's bound and launches a
+step), then, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device and
 when any check fails.
 """
@@ -77,6 +88,7 @@ QP_X_TOL = 1e-3  # QP kernel vs its plain version at the main path's shapes
 QP_WIDE_TOL = 2e-3  # at m=153, and against the general solve_qp (JAX's envelope)
 QP_U_TOL = 1e-3  # CBF-QP path: first 64 robots vs the plain version
 CHAIN = 25  # warm-started B=1 solves timed for the single-robot latency
+CHAIN_GENERAL = 5  # the same through the general solve (host-bound, seconds a solve)
 
 
 def card_line() -> str:
@@ -137,6 +149,96 @@ def sync_time(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+class ActiveRows(torch.overrides.TorchFunctionMode):
+    """Counts the constraint rows that enter H in a plain version's Newton
+    steps: the true entries of its comparisons ``act > 0.0`` of activations
+    that ``match`` picks (B1's plain version tests one row at a time, B3's
+    all rows at once)."""
+
+    def __init__(self, match):
+        super().__init__()
+        self.match, self.calls, self.counts = match, 0, []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (func in (torch.Tensor.gt, torch.Tensor.__gt__) and len(args) == 2
+                and isinstance(args[1], float) and args[1] == 0.0 and self.match(args[0])):
+            self.calls += 1
+            self.counts.append(out.sum())
+        return out
+
+    def total(self) -> int:
+        return int(torch.stack(self.counts).sum()) if self.counts else 0
+
+
+# The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
+# 700 W): float32 outside the tensor cores, and HBM3.  Operations count each
+# add, subtract, multiply, divide, square root, floor, sine, cosine and power
+# once; comparisons, min/max, abs and negation are free.
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
+# Operations of one Quad3D RK4 step (mpc_fused_models.h::Quad3D::step): the
+# allocation 28, four derivatives 8, three stage states 72, the update 84,
+# three angle wraps 15.
+QUAD3D_STEP_OPS = 207
+
+
+def bound(flops, nbytes):
+    """(least milliseconds, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def b1_flops(obs, active_rows):
+    """Operations of B1's solve on these problems, counted from its code
+    (N=8, K=5, M=16, 8x3 budget), with H as its lower triangle and the
+    rho Jc'Jc update only for the ``active_rows`` the Newton steps met."""
+    N, K, M, NR, NC, steps = 8, 5, 16, 48, 56, 24
+    circles = int((obs[..., 6] < 0.5).sum())
+    supers = obs.shape[0] * K - circles
+    hv = (6 * circles + 14 * supers) / obs.shape[0]  # barrier values, per problem
+    hg = (2 * circles + 16 * supers) / obs.shape[0]  # their position gradients
+    # per stage: dynamics 25, state rows 8, v rows 2, CBF rows 8 each
+    values = hv + N * (25 + 8 + 2 + 2 * hv + 8 * K) + 2 * M
+    # tangents: TX, TY, TX2, TY2 (5 a column each) and the CBF Jacobian rows
+    tangents = N * (326 + 2 * hg + 224 * K)
+    tri = M * (M + 1) // 2
+    newton = (values + tangents + (NR - M) * (2 + 4 * M + 2 * tri) + M * 2
+              + NC * (5 + 3 * M)                  # activations, rs, grad
+              + 48 + 34 + M + 3 * tri + 4 * M     # input-move grad, damping, Hf
+              + sum(i * (i + 1) for i in range(M)) + tri   # Cholesky
+              + 2 * (M * M)                       # the two substitutions
+              + M * (2 * M - 1) + 4 * M + 6       # predicted decrease
+              + 6 * (values + 4 * NR + 7 * NC + 3) + 12 * M + 2 * M)  # line search, update
+    per_problem = (values + tangents + NC * 34 + steps * newton + 8 * (values + 3 * NC)
+                   + values + NC)
+    return obs.shape[0] * per_problem + active_rows * (M + 2 * tri)
+
+
+def b2_flops(B, n, m, iters, stages=8):
+    """Operations of B2's staged ADMM on B problems, counted from its code."""
+    tri = n * (n + 1) // 2
+    sweep = 5 * n + 2 * n * n + m * (4 * n + 9)
+    stage = 3 * tri + n + sum(i * (i + 1) for i in range(n)) + n * n + m * 4 * n + 3
+    return B * (iters * sweep + stages * stage + m * 2 * tri)
+
+
+def b3_flops(B, n, m, N, K, NC, step_ops, active_rows):
+    """Operations of B3's solve for a model of ``step_ops`` operations a
+    ``step``, from its code, with circle barriers and relative degree 1.  A
+    dual-number operation is counted as two (a value and a tangent: the
+    Quad3D step multiplies duals by constants only)."""
+    M, NR, steps = N * m, N * (n + m), 24
+    tri = M * (M + 1) // 2
+    rollout = K * 6 + N * (step_ops + 2 * n + 9 * K + 2 * (NC - N * K) // (2 * N)) + 2 * N * m
+    newton = (M * (2 * rollout + NC) + 2 * M * (NR + NC) + 2 * tri * NR + 2 * M + 3 * tri
+              + sum(i * (i + 1) for i in range(M)) + tri + 2 * M * M + 2 * M * M
+              + 6 * (rollout + 4 * NR + 7 * NC) + 12 * M)
+    per_problem = (M * 2 * rollout + NC * 2 * M + steps * newton
+                   + 8 * (rollout + 3 * NC) + rollout + NC)
+    return B * per_problem + active_rows * 2 * tri
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -170,9 +272,11 @@ def main() -> None:
     _build.build_all(["mpc_du_kernel", "qp_admm_kernel", "mpc_fused_kernel"])
     _build.load_mpc_du_kernel()
     info = _build.BUILD_INFO["mpc_du_kernel"]
-    ptxas = [ln for ln in info["ptxas"].splitlines() if "mpc_du_kernel" in ln or "registers" in ln]
-    print(f"phase 1 build: mpc_du_kernel {info['seconds']:.1f} s "
-          f"(cached={info['cached']}); ptxas: {' | '.join(ln.strip() for ln in ptxas)}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"phase 1 build: mpc_du_kernel {info['seconds']:.1f} s (cached={info['cached']}); "
+          f"ptxas: {ptxas_summary(info['ptxas'])}; at B={BATCH} "
+          f"{-(-BATCH // duk.PROBLEMS_PER_BLOCK)} blocks of {duk.THREADS} threads "
+          f"({duk.LANES} lanes a problem) on {sms} SMs")
 
     # ---- phase 2: kernel vs its plain version at the main path's shapes --
     step_k, args = entry.build_step(BATCH, device=dev, use_fused_kernel=True)
@@ -180,23 +284,37 @@ def main() -> None:
     spec = make_spec(DYNAMIC_UNICYCLE_2D, a_max=1.0, w_max=0.5)
     params = (entry.DT, spec.mpc_cbf_alpha1, spec.mpc_cbf_alpha2, spec.cbf_beta,
               spec.radius, spec.v_max, spec.a_max, spec.w_max)
-    # two input sets: the cold start and the warm start one step later
+    # the cold start, the warm start one step later, and ragged batches: a
+    # partly filled block (B=17, 4097) and a partly filled warp (B=1, 17)
     x1, u1, U1 = step_k(xs, goals, obs, u_prevs, Us)
+    warm = (x1, goals, obs, u1, U1)
+    pairs = [(f"B={BATCH} cold", args), (f"B={BATCH} warm", warm),
+             ("B=1 warm", [t[:1] for t in warm]), ("B=17 warm", [t[:17] for t in warm]),
+             ("B=4097 cold", entry.build_step(4097, device=dev)[1])]
     torch.cuda.synchronize()
-    max_du = max_dU = max_dviol = 0.0
-    for ins in ((xs, goals, obs, u_prevs, Us), (x1, goals, obs, u1, U1)):
+    max_abs_err = 0.0
+    b1_active = ActiveRows(lambda t: t.dim() == 1)  # one (B,) activation a row
+    for label, ins in pairs:
         kern = duk.solve_du_batch(*ins, params)
         torch.cuda.synchronize()
-        plain = duk.solve_du_batch_reference(*ins, params)
+        if label == f"B={BATCH} cold":
+            with b1_active:
+                plain = duk.solve_du_batch_reference(*ins, params)
+        else:
+            plain = duk.solve_du_batch_reference(*ins, params)
         torch.cuda.synchronize()
-        max_du = max(max_du, (kern.u - plain.u).abs().max().item())
-        max_dU = max(max_dU, (kern.U - plain.U).abs().max().item())
-        max_dviol = max(max_dviol, (kern.viol - plain.viol).abs().max().item())
-    max_abs_err = max(max_dU, max_dviol)
-    print(f"phase 2 kernel vs plain (B={BATCH}, 2 input sets): max|du| {max_du:.3e}, "
-          f"max|dU| {max_dU:.3e}, max|dviol| {max_dviol:.3e}")
-    if not (max_du < U_TOL and max_dviol <= VIOL_TOL):
-        raise SystemExit("phase 2 failed: kernel disagrees with its plain version")
+        du_ = (kern.u - plain.u).abs().max().item()
+        dU = (kern.U - plain.U).abs().max().item()
+        dv = (kern.viol - plain.viol).abs().max().item()
+        same = torch.equal(kern.U, plain.U) and torch.equal(kern.viol, plain.viol)
+        max_abs_err = max(max_abs_err, dU, dv)
+        print(f"phase 2 kernel vs plain ({label}): max|du| {du_:.3e}, max|dU| {dU:.3e}, "
+              f"max|dviol| {dv:.3e}, bit-identical {same}")
+        if not (du_ < U_TOL and dv <= VIOL_TOL):
+            raise SystemExit(f"phase 2 failed: kernel disagrees with its plain version ({label})")
+    if b1_active.calls != 24 * duk.NC:
+        raise SystemExit(f"phase 2 failed: counted {b1_active.calls} activation tests, "
+                         f"not one a constraint row and Newton step")
 
     cfg = mpc_cbf.MPCConfig(horizon=8, num_obs=5)
     k = N_GENERAL
@@ -263,6 +381,20 @@ def main() -> None:
           f"{plain_ms:.1f} ms; main path {BATCH / step_ms_k * 1e3:.1f} solves/s through the "
           f"kernel vs {BATCH / step_ms_p * 1e3:.1f} solves/s through the general solve "
           f"({step_ms_k:.3f} vs {step_ms_p:.1f} ms/step)")
+    # the per-problem critical path (B=1) and a full card (B=16384, kernel only)
+    sizes_ms = {}
+    for b_, reps in ((1, 20), (16384, 5)):
+        ins = [t[:1] for t in args] if b_ == 1 else entry.build_step(b_, device=dev)[1]
+        run = lambda: duk.solve_du_batch(*ins, params)
+        run()
+        sizes_ms[b_] = sync_time(run, reps)
+    b1_ops = b1_flops(obs, b1_active.total())
+    b1_bound, b1_by = bound(b1_ops, BATCH * (61 + 17) * 4)
+    print(f"phase 4 [{card}] kernel at B=1 {sizes_ms[1]:.4f} ms, B={BATCH} {ms:.4f} ms, "
+          f"B=16384 {sizes_ms[16384]:.4f} ms; B={BATCH}: {b1_ops:.4e} operations "
+          f"({b1_active.total()} active constraint rows in the Newton steps), bound "
+          f"{b1_bound:.4f} ms by {b1_by} at {FP32_PEAK / 1e12:.0f} TFLOP/s, "
+          f"{100 * b1_bound / ms:.2f}% of it reached")
 
     # ---- phase 5: the QP ADMM kernel's build ---------------------------------
     _build.load_qp_admm_kernel()
@@ -377,6 +509,12 @@ def main() -> None:
     cstep_ms_k = sync_time(cstep_kernel, 10)
     cstep_general()
     cstep_ms_g = sync_time(cstep_general, 2)
+    qn, qm = qp_data[0].shape[-1], qp_data[2].shape[-2]
+    b2_ops = b2_flops(BATCH, qn, qm, 1600)
+    b2_bound, b2_by = bound(b2_ops, BATCH * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+    print(f"phase 8 [{card}] B={BATCH}: QP kernel {b2_ops:.4e} operations (n={qn}, m={qm}, "
+          f"1600 iterations), bound {b2_bound:.4f} ms by {b2_by}, {100 * b2_bound / sweep_ms:.2f}% "
+          f"of it reached by the launch")
     print(f"phase 8 [{card}] B={BATCH}: QP kernel path {qp_ms:.3f} ms/solve-batch "
           f"(the launch alone {sweep_ms:.3f} ms) vs plain version {qp_plain_ms:.1f} ms; "
           f"CBF-QP path {1e3 / cstep_ms_k:.1f} steps/s ({BATCH * 1e3 / cstep_ms_k:.1f} "
@@ -409,10 +547,17 @@ def main() -> None:
     # ---- phase 10: fused kernel vs its plain version -------------------------------
     fused_errs = []
 
-    def fused_pair(label, model, sp, args, cf):
+    q3_nc = mpc_cbf._num_constraints(get_model(QUAD_3D), q3_cfg)
+    b3_active = ActiveRows(lambda t: t.dim() == 2 and t.shape[-1] == q3_nc)
+
+    def fused_pair(label, model, sp, args, cf, count=False):
         kern = mf.solve_fused_batch(model, sp, *args, entry.DT, cf)
         torch.cuda.synchronize()
-        plain = mf.solve_fused_batch_reference(model, sp, *args, entry.DT, cf)
+        if count:
+            with b3_active:
+                plain = mf.solve_fused_batch_reference(model, sp, *args, entry.DT, cf)
+        else:
+            plain = mf.solve_fused_batch_reference(model, sp, *args, entry.DT, cf)
         torch.cuda.synchronize()
         du_ = (kern.U - plain.U).abs().max().item()
         dxs = (kern.xs - plain.xs).abs().max().item()
@@ -429,7 +574,10 @@ def main() -> None:
         return kern
 
     fstep_k, fargs = entry.build_fused_step(BATCH, device=dev)
-    fused_pair("a", QUAD_3D, q3_spec, fargs, q3_cfg)
+    fused_pair("a", QUAD_3D, q3_spec, fargs, q3_cfg, count=True)
+    if b3_active.calls != 24:
+        raise SystemExit(f"phase 10a failed: counted {b3_active.calls} activation tests, "
+                         f"not one a Newton step")
     fx1, fu1, fU1 = fstep_k(*fargs)
     fused_pair("a", QUAD_3D, q3_spec, (fx1, fargs[1], fargs[2], fu1, fU1), q3_cfg)
 
@@ -532,22 +680,33 @@ def main() -> None:
           f"({fstep_ms_k:.3f} ms/step) through the kernel vs {BATCH / fstep_ms_g * 1e3:.1f} "
           f"solves/s ({fstep_ms_g:.1f} ms/step) through the general solve")
 
+    q3 = get_model(QUAD_3D)
+    q3_n, q3_m, q3_M = q3.N_STATES, q3.N_CONTROLS, 10 * q3.N_CONTROLS
+    b3_ops = b3_flops(BATCH, q3_n, q3_m, 10, 5, q3_nc, QUAD3D_STEP_OPS, b3_active.total())
+    b3_bound, b3_by = bound(b3_ops, BATCH * (2 * q3_n + 35 + q3_m + 2 * q3_M + 11 * q3_n + 1) * 4)
+    print(f"phase 12 [{card}] B={BATCH} Quad3D N=10: fused kernel {b3_ops:.4e} operations "
+          f"({b3_active.total()} active constraint rows in the Newton steps), bound "
+          f"{b3_bound:.4f} ms by {b3_by}, {100 * b3_bound / f_ms:.2f}% of it reached")
+
     def chain_us(model_name, horizon, fused):
-        """Microseconds per solve over CHAIN warm-started B=1 solve_dispatch calls."""
+        """Microseconds per solve over a chain of warm-started B=1
+        solve_dispatch calls (CHAIN through the kernel, CHAIN_GENERAL not)."""
         one_step, a = entry.build_fused_step(1, model_name=model_name, horizon=horizon,
                                              device=dev, use_fused_kernel=fused)
         one_step(*a)  # warm-up: first use of every launch path
         x, up, U = a[0], a[3], a[4]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(CHAIN):
+        chain = CHAIN if fused else CHAIN_GENERAL
+        for _ in range(chain):
             x, up, U = one_step(x, a[1], a[2], up, U)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / CHAIN * 1e6
+        return (time.perf_counter() - t0) / chain * 1e6
 
     lat = {(mname, fused): chain_us(mname, hz, fused)
            for mname, hz in ((QUAD_3D, 10), (DYNAMIC_UNICYCLE_2D, 8)) for fused in (True, False)}
-    print(f"phase 12 [{card}] single robot, {CHAIN} chained warm-started steps (solve_dispatch "
+    print(f"phase 12 [{card}] single robot, {CHAIN} ({CHAIN_GENERAL} through the general "
+          f"solve) chained warm-started steps (solve_dispatch "
           f"+ model.step): Quad3D N=10 {lat[(QUAD_3D, True)]:.1f} us/solve through the fused "
           f"kernel vs {lat[(QUAD_3D, False)]:.1f} us through the general solve; DU N=8 "
           f"{lat[(DYNAMIC_UNICYCLE_2D, True)]:.1f} vs {lat[(DYNAMIC_UNICYCLE_2D, False)]:.1f} us")
@@ -558,27 +717,39 @@ def main() -> None:
         "source": "safe_control_tpu_torch/csrc/mpc_du_kernel.cu",
         "replaces": "safe_control_tpu/solvers/mpc_du_kernel.py:105",
         "launches": launches,
+        "launches_per_step": launches / STEPS,
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": b1_bound,
+        "bound_by": b1_by,
+        "library_ms": None,
     }, {
         "name": "qp_admm_kernel",
         "route": "cuda",
         "source": "safe_control_tpu_torch/csrc/qp_admm_kernel.cu",
         "replaces": "safe_control_tpu/solvers/qp_kernel.py:101",
         "launches": qp_launches,
+        "launches_per_step": qp_launches / STEPS,
         "max_abs_err": max(qp_dx, qp_dy),
         "ms": qp_ms,
         "plain_ms": qp_plain_ms,
+        "bound_ms": b2_bound,
+        "bound_by": b2_by,
+        "library_ms": None,
     }, {
         "name": "mpc_fused_kernel",
         "route": "cuda",
         "source": "safe_control_tpu_torch/csrc/mpc_fused_kernel.cu",
         "replaces": "safe_control_tpu/solvers/mpc_fused.py:913",
         "launches": fused_launches,
+        "launches_per_step": fused_launches / STEPS,
         "max_abs_err": fused_max_err,
         "ms": f_ms,
         "plain_ms": f_plain_ms,
+        "bound_ms": b3_bound,
+        "bound_by": b3_by,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

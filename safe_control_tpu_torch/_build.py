@@ -70,7 +70,9 @@ def build_all(names) -> dict:
         out = outs[name] = _library_path(name)
         if out.exists():
             if BUILD_INFO.get(name, {}).get("path") != str(out):  # keep this process's build
-                BUILD_INFO[name] = dict(path=str(out), seconds=0.0, cached=True, ptxas="")
+                log = out.with_suffix(".log")  # the report of the build that made it
+                BUILD_INFO[name] = dict(path=str(out), seconds=0.0, cached=True,
+                                        ptxas=log.read_text() if log.exists() else "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")

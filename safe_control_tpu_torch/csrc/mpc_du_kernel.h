@@ -14,8 +14,14 @@ constexpr int K = 5;               // obstacle slots
 constexpr int M = 16;              // decision variables, 2 * N
 constexpr int NR = 48;             // residual rows: state (8x4) + input moves (8x2)
 constexpr int NC = 56;             // constraint rows: CBF (8x5) + v bounds (8x2)
-constexpr int TRI = M * (M + 1) / 2;  // packed lower triangle of a 16x16 matrix
 constexpr int OBS_DIM = 7;
+
+// Launch shape: one group of LANES lanes (a half-warp) per problem, lane j
+// owning decision variable j; THREADS-thread blocks of PROBLEMS_PER_BLOCK
+// problems.
+constexpr int LANES = 16;          // lanes per problem, = M
+constexpr int THREADS = 128;       // threads per block
+constexpr int PROBLEMS_PER_BLOCK = THREADS / LANES;
 
 // Default MPCConfig budget.
 constexpr int OUTER = 8;

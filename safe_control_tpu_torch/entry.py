@@ -45,7 +45,7 @@ CBF_QP_OBSTACLES = [
 ]
 
 
-def build_step(batch, horizon=8, num_obs=5, *, device, dtype=torch.float32,
+def build_step(batch, horizon=8, num_obs=5, *, device="cuda", dtype=torch.float32,
                use_fused_kernel=True):
     """Return ``(control_step, (xs, goals, obs, u_prevs, Us))``.
 
@@ -91,7 +91,7 @@ def build_step(batch, horizon=8, num_obs=5, *, device, dtype=torch.float32,
     return control_step, (xs, goals, obs, u_prevs, Us)
 
 
-def build_fused_step(batch, model_name=QUAD_3D, horizon=10, num_obs=5, *, device,
+def build_fused_step(batch, model_name=QUAD_3D, horizon=10, num_obs=5, *, device="cuda",
                      dtype=torch.float32, use_fused_kernel=True):
     """Return ``(control_step, (xs, goals, obs, u_prevs, Us))``.
 
@@ -141,7 +141,7 @@ def build_fused_step(batch, model_name=QUAD_3D, horizon=10, num_obs=5, *, device
     return control_step, (xs, goals, obs, u_prevs, Us)
 
 
-def build_cbf_qp_step(batch, num_obs=5, *, device, dtype=torch.float32,
+def build_cbf_qp_step(batch, num_obs=5, *, device="cuda", dtype=torch.float32,
                       model_name=DOUBLE_INTEGRATOR_2D, mode="cbf", iters=1600,
                       backend="auto"):
     """Return ``(control_step, (xs, goals, obs))``.

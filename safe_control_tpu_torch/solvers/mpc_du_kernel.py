@@ -6,7 +6,9 @@ circle/superellipsoid blend and the v-bound rows, constraint-row scaling at
 the warm start, the Gauss-Newton gradient and Hessian as outer products,
 the projected free set, a 16x16 Cholesky, the six-step noise-aware line
 search and the multiplier update — runs per problem in one CUDA kernel
-(``csrc/mpc_du_kernel.cu``, one problem per thread).
+(``csrc/mpc_du_kernel.cu``): a group of ``LANES`` lanes (a half-warp) per
+problem, lane j owning decision variable j, ``PROBLEMS_PER_BLOCK`` problems
+to a ``THREADS``-thread block.
 
 ``solve_du_batch_reference`` is the plain PyTorch version of that kernel:
 the same hand-derived math on ``(B, ...)`` tensors, with no autodiff, and
@@ -48,6 +50,11 @@ NOISE_EPS = 4.0 * 1.1920929e-7  # 4 * eps_f32 (noise-aware line search)
 # DU cost weights (mpc_cbf._WEIGHTS).
 SQ = tuple(math.sqrt(w) for w in (50.0, 50.0, 0.01, 30.0))
 SR = tuple(math.sqrt(w) for w in (0.5, 0.5))
+
+# Launch shape of the CUDA kernel (csrc/mpc_du_kernel.h).
+LANES = M  # lanes per problem
+THREADS = 128  # threads per block
+PROBLEMS_PER_BLOCK = THREADS // LANES
 
 # Kernel launches made by ``solve_du_batch`` (CPU calls do not count).
 LAUNCH_COUNT = 0

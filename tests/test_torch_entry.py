@@ -22,6 +22,7 @@ envelope) and equal ``feasible`` flags, through the general path and the
 QP kernel's plain version.
 """
 
+import inspect
 import os
 import shutil
 import subprocess
@@ -191,3 +192,11 @@ def test_chip_smoke_fails_alone(tmp_path):
     proc = _run_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("name", ["build_step", "build_fused_step", "build_cbf_qp_step"])
+def test_entry_points_run_on_the_card_by_default(name):
+    """A caller who names no device gets the card; the CPU is asked for."""
+    param = inspect.signature(getattr(entry, name)).parameters["device"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY
+    assert param.default == "cuda"

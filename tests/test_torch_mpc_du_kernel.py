@@ -14,8 +14,11 @@ which a wrong tangent would break.  The CUDA kernel itself is checked by the
 ``gpu``-marked test on a card and by ``chip_smoke.py``.
 """
 
+import ctypes
 import math
 import re
+import shutil
+import subprocess
 from pathlib import Path
 
 import jax
@@ -38,9 +41,9 @@ PARAMS = (DT, SPEC.mpc_cbf_alpha1, SPEC.mpc_cbf_alpha2, SPEC.cbf_beta, SPEC.radi
 CSRC = Path(duk.__file__).resolve().parent.parent / "csrc"
 
 
-def problems(seed=0, warm=True):
-    """16 problems; ``warm=False`` zeroes u_prev and the warm start, the form
-    of the JAX package's own kernel-parity batch."""
+def problems(seed=0, warm=True, B=B):
+    """``B`` problems; ``warm=False`` zeroes u_prev and the warm start, the
+    form of the JAX package's own kernel-parity batch."""
     rng = np.random.default_rng(seed)
     xs = np.concatenate([rng.uniform(0, 3, (B, 2)), rng.uniform(-1, 1, (B, 1)),
                          rng.uniform(0, 0.8, (B, 1))], axis=1)
@@ -130,7 +133,7 @@ def test_warm_start_shift_and_clip():
 def _header_constants():
     text = (CSRC / "mpc_du_kernel.h").read_text()
     consts = {}
-    for m in re.finditer(r"constexpr (?:int|float) (\w+) = (?:\(float\))?\(?([-\w.*+ ()e]+?)\)?;",
+    for m in re.finditer(r"constexpr (?:int|float) (\w+) = (?:\(float\))?\(?([-\w.*+/ ()e]+?)\)?;",
                          text):
         consts[m.group(1)] = m.group(2)
     return consts
@@ -140,8 +143,14 @@ def test_cuda_header_constants_match_module():
     """The CUDA source's constants are the Python module's, rounded alike."""
     c = _header_constants()
     f32 = lambda expr: np.float32(eval(expr, {"M": 16}))
-    for name in ("N", "K", "M", "NR", "NC", "OUTER", "NEWTON"):
-        assert int(eval(c[name], {"M": 16, "N": 8, "K": 5})) == getattr(duk, name), name
+    ints = {}  # in the header's order, with C's integer division
+    for name in ("N", "K", "M", "NR", "NC", "LANES", "THREADS", "PROBLEMS_PER_BLOCK",
+                 "OUTER", "NEWTON"):
+        ints[name] = int(eval(c[name].replace("/", "//"), {}, ints))
+        assert ints[name] == getattr(duk, name), name
+    # the launch shape: a group of LANES lanes per problem, one per variable
+    assert duk.LANES == duk.M and duk.PROBLEMS_PER_BLOCK * duk.LANES == duk.THREADS
+    assert 32 % duk.LANES == 0 and duk.THREADS % 32 == 0  # groups tile whole warps
     for name, val in (("RHO0", duk.RHO0), ("RHO_GROWTH", duk.RHO_GROWTH),
                       ("RHO_MAX", duk.RHO_MAX), ("REG", duk.REG),
                       ("NOISE_EPS", duk.NOISE_EPS), ("PI_F", math.pi),
@@ -163,11 +172,128 @@ def test_cuda_header_constants_match_module():
     assert duk._input_hess(0, 1) == 0.0 and duk._input_hess(1, 3) == duk._input_hess(0, 2)
 
 
+# The CUDA features the kernel uses, on the CPU: one warp at a time, its 32
+# lanes as fibers that take turns at each __syncwarp and shuffle (the kernel
+# never synchronises across warps, so warps may run one after another).
+_CUDA_ON_CPU = r"""
+#include <math.h>
+#include <ucontext.h>
+#include <cmath>
+#include <cstddef>
+#include <functional>
+#include <vector>
+using std::isfinite;
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__ __restrict
+#define __shared__ static
+#define __align__(n) alignas(n)
+struct emu_dim { unsigned x, y, z; };
+static emu_dim blockIdx, emu_tid[32];
+struct alignas(16) float4 { float x, y, z, w; };
+typedef void* cudaStream_t;
+static inline int cudaGetLastError() { return 0; }
+struct EmuLane { ucontext_t ctx; std::vector<char> stack; bool done; };
+static EmuLane emu_lanes[32];
+static ucontext_t emu_main;
+static int emu_lane, emu_count, emu_phase;
+#define threadIdx (emu_tid[emu_lane])
+static float emu_slots[32];
+static std::function<void()> emu_body;
+static inline void emu_switch() {
+  const int prev = emu_lane;
+  do emu_lane = (emu_lane + 1) % 32; while (emu_lanes[emu_lane].done && emu_lane != prev);
+  if (emu_lane != prev) swapcontext(&emu_lanes[prev].ctx, &emu_lanes[emu_lane].ctx);
+}
+static inline void __syncwarp(unsigned = 0xffffffffu) {
+  const int phase = emu_phase;
+  if (++emu_count == 32) { emu_count = 0; ++emu_phase; return; }
+  while (emu_phase == phase) emu_switch();
+}
+static inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
+  const int lane = emu_lane;
+  emu_slots[lane] = v;
+  __syncwarp();
+  const float r = emu_slots[(lane & ~(width - 1)) + (src & (width - 1))];
+  __syncwarp();
+  return r;
+}
+static inline void emu_entry() {
+  emu_body();
+  emu_lanes[emu_lane].done = true;
+  bool all = true;
+  for (auto& l : emu_lanes) all = all && l.done;
+  if (all) setcontext(&emu_main);
+  emu_switch();
+}
+template <class... KA, class... A>
+static void emu_launch(int blocks, int threads, void (*kern)(KA...), A... args) {
+  emu_body = [=] { kern(args...); };
+  for (int bi = 0; bi < blocks; ++bi)
+    for (int w = 0; w < threads / 32; ++w) {
+      blockIdx = {unsigned(bi), 0, 0};
+      for (int l = 0; l < 32; ++l) {
+        EmuLane& e = emu_lanes[l];
+        e.stack.resize(1 << 18);
+        e.done = false;
+        getcontext(&e.ctx);
+        e.ctx.uc_stack.ss_sp = e.stack.data();
+        e.ctx.uc_stack.ss_size = e.stack.size();
+        e.ctx.uc_link = nullptr;
+        makecontext(&e.ctx, emu_entry, 0);
+      }
+      for (int l = 0; l < 32; ++l) emu_tid[l] = {unsigned(w * 32 + l), 0, 0};
+      emu_lane = 0;
+      emu_count = emu_phase = 0;
+      swapcontext(&emu_main, &emu_lanes[0].ctx);
+    }
+}
+"""
+
+
+def test_cuda_source_on_the_cpu_matches_plain_version(tmp_path):
+    """The kernel's CUDA source itself, built for the CPU with the warp
+    emulation above (``<<<...>>>`` becomes ``emu_launch``; no FMA contraction,
+    as ``-fmad=false`` on the card), against its plain version at B=9: a
+    full block of 8 problems and a block whose one warp has a second group
+    that solves a copy and stores nothing.  Not bit for bit: the CPU's libm
+    rounds sin, cos and pow unlike PyTorch's CPU kernels (measured 8.7e-5 in
+    u), so the kernel-class envelope holds; a wrong index of the factor in
+    the back substitution gives 0.15."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the CUDA source for the CPU")
+    (tmp_path / "cuda_runtime.h").write_text(_CUDA_ON_CPU)
+    source = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),.*?>>>\(", r"emu_launch(\2, \3, \1, ",
+                    (CSRC / "mpc_du_kernel.cu").read_text())
+    (tmp_path / "kernel.cpp").write_text(source)
+    lib_path = tmp_path / "libmpc_du_cpu.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+                    "-I", str(tmp_path), "-I", str(CSRC), "-o", str(lib_path),
+                    str(tmp_path / "kernel.cpp")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.mpc_du_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_float] * 8
+                                  + [ctypes.c_void_p])
+    batch = 9
+    ins = _t([a[:batch] for a in problems()])
+    U0 = duk._warm_start(ins[4], SPEC.a_max, SPEC.w_max)
+    U = torch.full((batch, duk.M), float("nan"))
+    viol = torch.full((batch,), float("nan"))
+    assert lib.mpc_du_launch(*(t.data_ptr() for t in (*ins[:4], U0, U, viol)), batch,
+                             *(float(p) for p in PARAMS), None) == 0
+    plain = duk.solve_du_batch_reference(*ins, PARAMS)
+    assert np.abs(U.numpy() - plain.U.reshape(batch, duk.M).numpy()).max() < 5e-3
+    np.testing.assert_allclose(viol.numpy(), plain.viol.numpy(), atol=1e-3)
+
+
 @pytest.mark.gpu
-def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch):
-    """On a card: the kernel against its plain version on the same inputs, and
-    the CUDA path never runs the plain version."""
-    ins = [t.to(cuda_device) for t in _t(problems())]
+@pytest.mark.parametrize("batch", [1, 17, 64, 4097])
+def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch, batch):
+    """On a card: the kernel against its plain version on the same inputs,
+    with a partly filled warp and block at 1, 17 and 4097 problems; the CUDA
+    path never runs the plain version."""
+    ins = [t.to(cuda_device) for t in _t(problems(B=batch))]
     plain = duk.solve_du_batch_reference(*ins, PARAMS)
     before = duk.LAUNCH_COUNT
 
