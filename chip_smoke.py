@@ -23,21 +23,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
    B=4096 its operation count (the rho Jc'Jc updates counted from the plain
    version's activation tests on these inputs), its bound at 67 TFLOP/s and
    the share of it reached.
-5. Reports the QP ADMM kernel's build (seconds, ptxas registers and stack).
-6. Holds the QP kernel against its plain version: (a) the B=4096
-   DoubleIntegrator2D CBF-QPs of ``entry.build_cbf_qp_step`` at 1600
-   iterations (max |dx| < 1e-3, equal ``feasible`` flags); (b) feasible
-   random QPs at n=3, m=153 (the Manipulator2D scale), B=256, 300
-   iterations (max |dx| < 2e-3 where both solve, at least 3/4 solved);
-   (c) against the general ``qp.solve_qp`` on 64 main-path problems
-   (|dx| < 2e-3 where both are feasible, equal ``feasible`` flags).
+5. Reports the QP ADMM kernel's build (seconds, ptxas registers, stack and
+   spills) and its launch shape at m=7 and m=153: lanes a problem, register
+   rows a lane, problems and threads a block.
+6. Holds the QP kernel against its plain version: (a) the DoubleIntegrator2D
+   CBF-QPs of ``entry.build_cbf_qp_step`` at 1600 iterations, at B=4096 and
+   on ragged batches, B=1 (a lone group), B=17 (a partly filled warp) and
+   B=4097 (a ragged block) (max |dx| < 1e-3, equal ``feasible`` flags);
+   (b) feasible random QPs at n=3, m=153 (the Manipulator2D scale), B=256,
+   300 iterations (max |dx| < 2e-3 where both solve, at least 3/4 solved);
+   both print whether each pair is bit-identical; (c) against the general
+   ``qp.solve_qp`` on 64 main-path problems (|dx| < 2e-3 where both are
+   feasible, equal ``feasible`` flags).
 7. Drives the CBF-QP path, ``entry.build_cbf_qp_step(4096, device="cuda")``,
    for 5 closed-loop steps: finite outputs of the right shapes, at least 5
    QP kernel launches, and each step's first 64 robots within 1e-3 of the
    plain version on the same inputs.
-8. Times the QP kernel and its plain version, and CBF-QP steps/s through
-   the kernel and through the general path; the kernel's operation count,
-   bound and share reached.
+8. Times the QP kernel's launch at B=1, 4096 and 16384, the kernel through
+   its wrapper (and the wrapper's ``qp.equilibrate`` and ``qp.finish``
+   alone) and its plain version, and CBF-QP steps/s through the kernel and
+   through the general path; the kernel's operation count, bound and share
+   reached.
 9. Reports the generic fused MPC kernel's build: seconds, and registers,
    stack, spills and dynamic shared memory per model instantiation.
 10. Holds the fused kernel against its plain version (max |du| < 5e-3,
@@ -99,18 +105,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_summary(report: str) -> str:
-    """One entry per compiled kernel: registers, stack frame and spills."""
+def ptxas_summary(report: str, keep=None) -> str:
+    """One entry per compiled kernel: registers, stack frame and spills;
+    ``keep``: only the kernels of these names (with template arguments, as
+    ``qp_admm_kernel<2,8,1>``)."""
     out, name, stack = [], "", ""
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
-            # the last "<name>_kernel" of the mangled name, and its template n
-            found = re.findall(r"([a-z]+(?:_[a-z]+)*_kernel)(?:ILi(\d+)E)?", ln.split("'")[1])
-            name = found[-1][0] + (f"<{found[-1][1]}>" if found[-1][1] else "") if found \
-                else ln.split("'")[1]
+            # the last "<name>_kernel" of the mangled name, and its int template arguments
+            found = re.findall(r"([a-z]+(?:_[a-z]+)*_kernel)(I(?:Li\d+E)+E)?", ln.split("'")[1])
+            if found:
+                args = re.findall(r"Li(\d+)E", found[-1][1])
+                name = found[-1][0] + (f"<{','.join(args)}>" if args else "")
+            else:
+                name = ln.split("'")[1]
         elif "bytes stack frame" in ln:
             stack = ln.strip()
-        elif "Used" in ln and "registers" in ln:
+        elif "Used" in ln and "registers" in ln and (keep is None or name in keep):
             regs = ln.split("Used")[1].split(",")[0].strip()
             out.append(f"{name}: {regs}, {stack}")
     return " | ".join(out)
@@ -189,6 +200,39 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def cbf_qp_data(x, gl, ob):
+    """The CBF-QPs (P, q, A, l, u) that one step of the CBF-QP path solves
+    (DoubleIntegrator2D, 'cbf' mode) at states ``x``, goals ``gl``, obstacles
+    ``ob``."""
+    from safe_control_tpu_torch import entry
+    from safe_control_tpu_torch.core.spec import DOUBLE_INTEGRATOR_2D, make_spec
+    from safe_control_tpu_torch.dynamics import get_model
+    from safe_control_tpu_torch.solvers import cbf_qp
+
+    spec = make_spec(DOUBLE_INTEGRATOR_2D)
+    di = get_model(DOUBLE_INTEGRATOR_2D)
+    u_ref = di.nominal_input(x, gl, spec)
+    return cbf_qp._assemble(di, DOUBLE_INTEGRATOR_2D, spec, x, u_ref, ob, entry.DT, "cbf")[:5]
+
+
+def wide_qps(dev, batch=256, n=3, m=153):
+    """Feasible-by-construction random QPs at the Manipulator2D scale: the
+    bounds bracket A x_star, and 100 of the 153 rows are one-sided
+    (CBF-style).  From ``np.random.default_rng(7)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    M = rng.normal(size=(batch, n, n))
+    x_star = rng.normal(size=(batch, n))
+    A = rng.normal(size=(batch, m, n))
+    Ax = np.einsum("bmn,bn->bm", A, x_star)
+    lo = Ax - rng.uniform(0.05, 1.5, size=(batch, m))
+    hi = Ax + rng.uniform(0.05, 1.5, size=(batch, m))
+    hi[:, :100] = np.inf
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in
+            (M @ M.transpose(0, 2, 1) + np.eye(n), rng.normal(size=(batch, n)), A, lo, hi)]
+
+
 def b1_flops(obs, active_rows):
     """Operations of B1's solve on these problems, counted from its code
     (N=8, K=5, M=16, 8x3 budget), with H as its lower triangle and the
@@ -256,7 +300,7 @@ def main() -> None:
     )
     from safe_control_tpu_torch.core.types import pad_obstacles
     from safe_control_tpu_torch.dynamics import get_model
-    from safe_control_tpu_torch.solvers import cbf_qp, mpc_cbf, qp
+    from safe_control_tpu_torch.solvers import mpc_cbf, qp
     from safe_control_tpu_torch.solvers import mpc_du_kernel as duk
     from safe_control_tpu_torch.solvers import mpc_fused as mf
     from safe_control_tpu_torch.solvers import qp_kernel as qpk
@@ -399,55 +443,56 @@ def main() -> None:
     # ---- phase 5: the QP ADMM kernel's build ---------------------------------
     _build.load_qp_admm_kernel()
     info = _build.BUILD_INFO["qp_admm_kernel"]
+    qp_shapes = []
+    for qm_ in (7, 153):
+        g_, r_ = qpk.launch_shape(qm_)
+        qp_shapes.append(f"m={qm_}: {g_} lanes a problem, {r_} register rows a lane, "
+                         f"{qpk.THREADS // g_} problems a block of {qpk.THREADS} threads")
+    g7 = qpk.launch_shape(7)[0]
+    path_kernels = {"qp_admm_kernel<2,%d,%d>" % qpk.launch_shape(7),
+                    "qp_admm_kernel<3,%d,%d>" % qpk.launch_shape(153)}
     print(f"phase 5 build: qp_admm_kernel {info['seconds']:.1f} s (cached={info['cached']}, "
-          f"built beside mpc_du_kernel); ptxas: {ptxas_summary(info['ptxas'])}")
+          f"built beside mpc_du_kernel); ptxas at n=2, m=7 and n=3, m=153: "
+          f"{ptxas_summary(info['ptxas'], path_kernels)}; launch shape "
+          + "; ".join(qp_shapes) + f"; at B={BATCH}, m=7: {-(-BATCH * g7 // qpk.THREADS)} blocks "
+          f"on {sms} SMs")
 
     # ---- phase 6: QP kernel vs its plain version -------------------------------
     cstep_k, (qxs, qgoals, qobs) = entry.build_cbf_qp_step(BATCH, device=dev)
-    di_spec = make_spec(DOUBLE_INTEGRATOR_2D)
-    di = get_model(DOUBLE_INTEGRATOR_2D)
-
-    def cbf_qp_data(x, gl, ob):
-        """The CBF-QPs (P, q, A, l, u) that one step of the CBF-QP path solves."""
-        u_ref = di.nominal_input(x, gl, di_spec)
-        return cbf_qp._assemble(di, DOUBLE_INTEGRATOR_2D, di_spec, x, u_ref, ob,
-                                entry.DT, "cbf")[:5]
-
     qp_data = cbf_qp_data(qxs, qgoals, qobs)
-    kern = qpk.solve_qp_batch(*qp_data)
-    torch.cuda.synchronize()
-    plain = qpk.solve_qp_batch_reference(*qp_data)
-    torch.cuda.synchronize()
-    qp_dx = (kern.x - plain.x).abs().max().item()
-    qp_dy = (kern.y - plain.y).abs().max().item()
-    feas_k, feas_p = kern.prim_res < 1e-3, plain.prim_res < 1e-3
-    feas_same = torch.equal(feas_k, feas_p)
-    print(f"phase 6a QP kernel vs plain (B={BATCH}, n=2, m=7, 1600 iters): max|dx| {qp_dx:.3e}, "
-          f"max|dy| {qp_dy:.3e}, bit-identical x {torch.equal(kern.x, plain.x)}, "
-          f"feasible flags equal {feas_same} ({int(feas_k.sum())} feasible)")
-    if not (qp_dx < QP_X_TOL and feas_same):
-        raise SystemExit("phase 6a failed: QP kernel disagrees with its plain version")
+    # the path's B, a lone group (B=1), a partly filled warp (B=17) and a
+    # ragged block (B=4097)
+    q_pairs = [(f"B={BATCH}", qp_data), ("B=1", [t[:1] for t in qp_data]),
+               ("B=17", [t[:17] for t in qp_data]),
+               ("B=4097", cbf_qp_data(*entry.build_cbf_qp_step(4097, device=dev)[1]))]
+    qp_dx = qp_dy = 0.0
+    for label, data in q_pairs:
+        kern = qpk.solve_qp_batch(*data)
+        torch.cuda.synchronize()
+        plain = qpk.solve_qp_batch_reference(*data)
+        torch.cuda.synchronize()
+        dx = (kern.x - plain.x).abs().max().item()
+        dy = (kern.y - plain.y).abs().max().item()
+        qp_dx, qp_dy = max(qp_dx, dx), max(qp_dy, dy)
+        feas_k, feas_p = kern.prim_res < 1e-3, plain.prim_res < 1e-3
+        feas_same = torch.equal(feas_k, feas_p)
+        same = torch.equal(kern.x, plain.x) and torch.equal(kern.y, plain.y)
+        print(f"phase 6a QP kernel vs plain ({label}, n=2, m=7, 1600 iters): max|dx| {dx:.3e}, "
+              f"max|dy| {dy:.3e}, bit-identical {same}, feasible flags equal {feas_same} "
+              f"({int(feas_k.sum())} feasible)")
+        if not (dx < QP_X_TOL and feas_same):
+            raise SystemExit(f"phase 6a failed: QP kernel disagrees with its plain version ({label})")
 
-    # Feasible-by-construction random QPs at the Manipulator2D scale: bounds
-    # bracket A x_star, and 100 of the 153 rows are one-sided (CBF-style).
-    rng = np.random.default_rng(7)
-    wb, wn, wm = 256, 3, 153
-    M = rng.normal(size=(wb, wn, wn))
-    x_star = rng.normal(size=(wb, wn))
-    A_w = rng.normal(size=(wb, wm, wn))
-    Ax_w = np.einsum("bmn,bn->bm", A_w, x_star)
-    l_w = Ax_w - rng.uniform(0.05, 1.5, size=(wb, wm))
-    u_w = Ax_w + rng.uniform(0.05, 1.5, size=(wb, wm))
-    u_w[:, :100] = np.inf
-    wide = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in
-            (M @ M.transpose(0, 2, 1) + np.eye(wn), rng.normal(size=(wb, wn)), A_w, l_w, u_w)]
+    wide = wide_qps(dev)
+    wb, wm, wn = wide[2].shape
     kern_w = qpk.solve_qp_batch(*wide, iters=300)
     torch.cuda.synchronize()
     plain_w = qpk.solve_qp_batch_reference(*wide, iters=300)
     both = (kern_w.prim_res < 1e-4) & (plain_w.prim_res < 1e-4)
     wide_dx = max_where((kern_w.x - plain_w.x).abs().amax(-1), both)
+    same = torch.equal(kern_w.x, plain_w.x) and torch.equal(kern_w.y, plain_w.y)
     print(f"phase 6b QP kernel vs plain (B={wb}, n={wn}, m={wm}, 300 iters): "
-          f"{int(both.sum())}/{wb} solved by both, max|dx| {wide_dx:.3e}")
+          f"{int(both.sum())}/{wb} solved by both, max|dx| {wide_dx:.3e}, bit-identical {same}")
     if not (wide_dx < QP_WIDE_TOL and int(both.sum()) * 4 >= 3 * wb):
         raise SystemExit("phase 6b failed: QP kernel disagrees with its plain version at m=153")
 
@@ -492,14 +537,27 @@ def main() -> None:
         raise SystemExit("phase 7 failed: CBF-QP path disagrees with the kernel's plain version")
 
     # ---- phase 8: QP times ------------------------------------------------------
-    scaled = qp.equilibrate(*qp_data)
-    run_sweep = lambda: qpk._sweep_cuda(*scaled[:5], 1600, 1.0, 1e-6, 1.6)
-    run_sweep()
-    sweep_ms = sync_time(run_sweep, 10)
+    sweep_ms = {}
+    for b_, reps in ((1, 20), (BATCH, 10), (16384, 10)):
+        data = [t[:1] for t in qp_data] if b_ == 1 else qp_data if b_ == BATCH else \
+            cbf_qp_data(*entry.build_cbf_qp_step(b_, device=dev)[1])
+        scaled = qp.equilibrate(*data)
+        run_sweep = lambda: qpk._sweep_cuda(*scaled[:5], 1600, 1.0, 1e-6, 1.6)
+        run_sweep()
+        sweep_ms[b_] = sync_time(run_sweep, reps)
+    print(f"phase 8 [{card}] QP kernel launch (n=2, m=7, 1600 iterations): B=1 "
+          f"{sweep_ms[1]:.4f} ms, B={BATCH} {sweep_ms[BATCH]:.4f} ms, B=16384 "
+          f"{sweep_ms[16384]:.4f} ms")
     run_qk = lambda: qpk.solve_qp_batch(*qp_data)
     run_qp = lambda: qpk.solve_qp_batch_reference(*qp_data)
     run_qk()
     qp_ms = sync_time(run_qk, 10)
+    # the wrapper's parts, each alone: the host enqueues its small ops
+    # faster than the card runs them, or not
+    scaled = qp.equilibrate(*qp_data)
+    x_s, y_s = qpk._sweep_cuda(*scaled[:5], 1600, 1.0, 1e-6, 1.6)
+    eq_ms = sync_time(lambda: qp.equilibrate(*qp_data), 10)
+    fin_ms = sync_time(lambda: qp.finish(*qp_data, scaled, x_s, y_s, True), 10)
     run_qp()
     qp_plain_ms = sync_time(run_qp, 2)
     cstep_g, _ = entry.build_cbf_qp_step(BATCH, device=dev, backend="xla")
@@ -513,10 +571,12 @@ def main() -> None:
     b2_ops = b2_flops(BATCH, qn, qm, 1600)
     b2_bound, b2_by = bound(b2_ops, BATCH * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
     print(f"phase 8 [{card}] B={BATCH}: QP kernel {b2_ops:.4e} operations (n={qn}, m={qm}, "
-          f"1600 iterations), bound {b2_bound:.4f} ms by {b2_by}, {100 * b2_bound / sweep_ms:.2f}% "
+          f"1600 iterations), bound {b2_bound:.4f} ms by {b2_by}, "
+          f"{100 * b2_bound / sweep_ms[BATCH]:.2f}% "
           f"of it reached by the launch")
     print(f"phase 8 [{card}] B={BATCH}: QP kernel path {qp_ms:.3f} ms/solve-batch "
-          f"(the launch alone {sweep_ms:.3f} ms) vs plain version {qp_plain_ms:.1f} ms; "
+          f"(qp.equilibrate {eq_ms:.3f} ms, the launch {sweep_ms[BATCH]:.3f} ms, qp.finish "
+          f"{fin_ms:.3f} ms, each alone) vs plain version {qp_plain_ms:.1f} ms; "
           f"CBF-QP path {1e3 / cstep_ms_k:.1f} steps/s ({BATCH * 1e3 / cstep_ms_k:.1f} "
           f"robot-steps/s, {cstep_ms_k:.3f} ms/step) through the kernel vs "
           f"{1e3 / cstep_ms_g:.1f} steps/s ({cstep_ms_g:.1f} ms/step) through the general "

@@ -7,8 +7,9 @@ unscaling and the residuals (``qp.finish``) run as PyTorch ops around one
 kernel launch, which runs the whole ADMM iteration: A'A once, then 8 stages
 that each refactor K = P + sigma I + rho A'A (n x n Cholesky) and run
 ``iters // 8`` over-relaxed x/z/y sweeps with a clip projection, with a
-per-problem adaptive rho between stages (``csrc/qp_admm_kernel.cu``, one
-problem per thread).
+per-problem adaptive rho between stages (``csrc/qp_admm_kernel.cu``: a
+group of lanes per problem, each lane's rows in registers; the launch shape
+is ``launch_shape``).
 
 ``solve_qp_batch_reference`` is the plain PyTorch version of that sweep:
 the same operations, every sum taken in the kernel's order (A'A over rows
@@ -31,6 +32,11 @@ from safe_control_tpu_torch.solvers.chol import chol_factor, chol_solve_factored
 
 N_STAGES = qp.N_STAGES
 MAX_N = 8  # variables per problem the kernel is instantiated for (1..8)
+# Launch shape (csrc/qp_admm_kernel.cu): a group of lanes per problem,
+# THREADS-thread blocks of THREADS / group problems.
+THREADS = 128
+MIN_GROUP, MAX_GROUP = 8, 32  # lanes per problem
+MAX_REG_ROWS = 8  # rows a lane holds in registers; past that, in global memory
 
 # Kernel launches made by ``solve_qp_batch`` (CPU calls do not count).
 LAUNCH_COUNT = 0
@@ -39,6 +45,20 @@ LAUNCH_COUNT = 0
 def _f32(v) -> float:
     """``v`` rounded to float32, as the kernel receives it."""
     return float(np.float32(v))
+
+
+def launch_shape(m: int) -> tuple[int, int]:
+    """``(G, R)`` for ``m`` rows: G lanes per problem, the least power of two
+    >= m within [MIN_GROUP, MAX_GROUP], and R row slots a lane holds in
+    registers, the least power of two with R G >= m (0 past MAX_REG_ROWS:
+    the rows stay in global memory).  The kernel's ``qp_admm_shape``."""
+    g = MIN_GROUP
+    while g < MAX_GROUP and g < m:
+        g *= 2
+    r = 1
+    while r * g < m:
+        r *= 2
+    return g, (r if r <= MAX_REG_ROWS else 0)
 
 
 def _check_inputs(P, q, A, l, u) -> None:
@@ -81,33 +101,31 @@ def solve_qp_batch(P, q, A, l, u, iters: int = 1600, rho: float = 1.0,
 
 
 def _sweep_cuda(P, q, A, lo, hi, iters, rho0, sigma, alpha):
-    """One kernel launch for the whole ADMM sweep: returns x (B,n), y (B,m)."""
+    """One kernel launch for the whole ADMM sweep: returns x (B,n), y (B,m).
+
+    The kernel reads the (B, ...) tensors in place; ``qp.equilibrate``'s
+    are contiguous, so nothing is copied.
+    """
     global LAUNCH_COUNT
     from safe_control_tpu_torch import _build
 
     lib = _build.load_qp_admm_kernel()
     B, m, n = A.shape
-
-    # (rows, B) layout: a warp's 32 loads of one row are contiguous.
-    def rows(t, r):
-        return t.reshape(B, r).t().contiguous()
-
-    p_t, q_t, a_t = rows(P, n * n), rows(q, n), rows(A, m * n)
-    l_t, u_t = rows(lo, m), rows(hi, m)
-    x_t = torch.empty((n, B), dtype=torch.float32, device=A.device)
-    z_t = torch.empty((m, B), dtype=torch.float32, device=A.device)
-    y_t = torch.empty((m, B), dtype=torch.float32, device=A.device)
+    P, q, A, lo, hi = (t.contiguous() for t in (P, q, A, lo, hi))
+    x = torch.empty((B, n), dtype=torch.float32, device=A.device)
+    y = torch.empty((B, m), dtype=torch.float32, device=A.device)
+    z = torch.empty((B, m), dtype=torch.float32, device=A.device)  # scratch past 256 rows
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = lib.qp_admm_launch(
-            p_t.data_ptr(), q_t.data_ptr(), a_t.data_ptr(), l_t.data_ptr(), u_t.data_ptr(),
-            x_t.data_ptr(), z_t.data_ptr(), y_t.data_ptr(), B, n, m,
+            P.data_ptr(), q.data_ptr(), A.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            x.data_ptr(), z.data_ptr(), y.data_ptr(), B, n, m,
             max(iters // N_STAGES, 1), _f32(rho0), _f32(sigma), _f32(alpha), stream,
         )
     if err != 0:
         raise RuntimeError(f"qp_admm_kernel launch failed: CUDA error {err}")
     LAUNCH_COUNT += 1
-    return x_t.t(), y_t.t()
+    return x, y
 
 
 def solve_qp_batch_reference(P, q, A, l, u, iters: int = 1600, rho: float = 1.0,

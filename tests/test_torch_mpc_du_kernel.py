@@ -18,7 +18,6 @@ import ctypes
 import math
 import re
 import shutil
-import subprocess
 from pathlib import Path
 
 import jax
@@ -27,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import cuda_on_cpu
 from safe_control_tpu.core.spec import DYNAMIC_UNICYCLE_2D, make_spec
 from safe_control_tpu.core.types import pad_obstacles
 from safe_control_tpu.solvers import mpc_cbf as jmpc
@@ -172,91 +172,10 @@ def test_cuda_header_constants_match_module():
     assert duk._input_hess(0, 1) == 0.0 and duk._input_hess(1, 3) == duk._input_hess(0, 2)
 
 
-# The CUDA features the kernel uses, on the CPU: one warp at a time, its 32
-# lanes as fibers that take turns at each __syncwarp and shuffle (the kernel
-# never synchronises across warps, so warps may run one after another).
-_CUDA_ON_CPU = r"""
-#include <math.h>
-#include <ucontext.h>
-#include <cmath>
-#include <cstddef>
-#include <functional>
-#include <vector>
-using std::isfinite;
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-#define __restrict__ __restrict
-#define __shared__ static
-#define __align__(n) alignas(n)
-struct emu_dim { unsigned x, y, z; };
-static emu_dim blockIdx, emu_tid[32];
-struct alignas(16) float4 { float x, y, z, w; };
-typedef void* cudaStream_t;
-static inline int cudaGetLastError() { return 0; }
-struct EmuLane { ucontext_t ctx; std::vector<char> stack; bool done; };
-static EmuLane emu_lanes[32];
-static ucontext_t emu_main;
-static int emu_lane, emu_count, emu_phase;
-#define threadIdx (emu_tid[emu_lane])
-static float emu_slots[32];
-static std::function<void()> emu_body;
-static inline void emu_switch() {
-  const int prev = emu_lane;
-  do emu_lane = (emu_lane + 1) % 32; while (emu_lanes[emu_lane].done && emu_lane != prev);
-  if (emu_lane != prev) swapcontext(&emu_lanes[prev].ctx, &emu_lanes[emu_lane].ctx);
-}
-static inline void __syncwarp(unsigned = 0xffffffffu) {
-  const int phase = emu_phase;
-  if (++emu_count == 32) { emu_count = 0; ++emu_phase; return; }
-  while (emu_phase == phase) emu_switch();
-}
-static inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
-  const int lane = emu_lane;
-  emu_slots[lane] = v;
-  __syncwarp();
-  const float r = emu_slots[(lane & ~(width - 1)) + (src & (width - 1))];
-  __syncwarp();
-  return r;
-}
-static inline void emu_entry() {
-  emu_body();
-  emu_lanes[emu_lane].done = true;
-  bool all = true;
-  for (auto& l : emu_lanes) all = all && l.done;
-  if (all) setcontext(&emu_main);
-  emu_switch();
-}
-template <class... KA, class... A>
-static void emu_launch(int blocks, int threads, void (*kern)(KA...), A... args) {
-  emu_body = [=] { kern(args...); };
-  for (int bi = 0; bi < blocks; ++bi)
-    for (int w = 0; w < threads / 32; ++w) {
-      blockIdx = {unsigned(bi), 0, 0};
-      for (int l = 0; l < 32; ++l) {
-        EmuLane& e = emu_lanes[l];
-        e.stack.resize(1 << 18);
-        e.done = false;
-        getcontext(&e.ctx);
-        e.ctx.uc_stack.ss_sp = e.stack.data();
-        e.ctx.uc_stack.ss_size = e.stack.size();
-        e.ctx.uc_link = nullptr;
-        makecontext(&e.ctx, emu_entry, 0);
-      }
-      for (int l = 0; l < 32; ++l) emu_tid[l] = {unsigned(w * 32 + l), 0, 0};
-      emu_lane = 0;
-      emu_count = emu_phase = 0;
-      swapcontext(&emu_main, &emu_lanes[0].ctx);
-    }
-}
-"""
-
-
 def test_cuda_source_on_the_cpu_matches_plain_version(tmp_path):
-    """The kernel's CUDA source itself, built for the CPU with the warp
-    emulation above (``<<<...>>>`` becomes ``emu_launch``; no FMA contraction,
-    as ``-fmad=false`` on the card), against its plain version at B=9: a
+    """The kernel's CUDA source itself, built for the CPU under the warp
+    emulation of ``cuda_on_cpu`` (no FMA contraction, as ``-fmad=false``
+    on the card), against its plain version at B=9: a
     full block of 8 problems and a block whose one warp has a second group
     that solves a copy and stores nothing.  Not bit for bit: the CPU's libm
     rounds sin, cos and pow unlike PyTorch's CPU kernels (measured 8.7e-5 in
@@ -264,15 +183,7 @@ def test_cuda_source_on_the_cpu_matches_plain_version(tmp_path):
     the back substitution gives 0.15."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the CUDA source for the CPU")
-    (tmp_path / "cuda_runtime.h").write_text(_CUDA_ON_CPU)
-    source = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),.*?>>>\(", r"emu_launch(\2, \3, \1, ",
-                    (CSRC / "mpc_du_kernel.cu").read_text())
-    (tmp_path / "kernel.cpp").write_text(source)
-    lib_path = tmp_path / "libmpc_du_cpu.so"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-I", str(tmp_path), "-I", str(CSRC), "-o", str(lib_path),
-                    str(tmp_path / "kernel.cpp")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = cuda_on_cpu.build(CSRC / "mpc_du_kernel.cu", tmp_path)
     lib.mpc_du_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_float] * 8
                                   + [ctypes.c_void_p])
     batch = 9

@@ -7,18 +7,23 @@ operations in the same order).  It is held against the JAX
 package's own tests run it (``tests/test_qp_kernel.py``), at the full
 1600-iteration budget: |dx| < 1e-3 on problems both solve (two float32
 solves of one problem by different operation orders); and against the
-analytic optima at 1e-5.  The CUDA kernel itself is checked by the
-``gpu``-marked test on a card and by ``chip_smoke.py``; on a machine
-without JAX run that one with ``--noconftest``.
+analytic optima at 1e-5.  The CUDA source itself is built for the CPU
+under the warp emulation of ``cuda_on_cpu`` and held to the plain sweep
+bit for bit; on a card the ``gpu``-marked tests and ``chip_smoke.py``
+check the kernel.  On a machine without JAX run those with
+``--noconftest``.
 """
 
+import ctypes
 import re
+import shutil
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+import cuda_on_cpu
 from safe_control_tpu_torch import interop
 from safe_control_tpu_torch.solvers import qp as tqp
 from safe_control_tpu_torch.solvers import qp_kernel as qpk
@@ -156,17 +161,92 @@ def test_cuda_source_constants_match_module():
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", text))
     assert int(consts["N_STAGES"]) == qpk.N_STAGES == 8
     assert int(consts["MAX_N"]) == qpk.MAX_N
-    assert int(consts["THREADS"]) == 32  # B = 4096 covers 128 blocks on 132 SMs
+    # the launch shape: groups of 8 to 32 lanes tile whole warps and blocks
+    for name in ("THREADS", "MIN_GROUP", "MAX_GROUP", "MAX_REG_ROWS"):
+        assert int(consts[name]) == getattr(qpk, name), name
+    assert qpk.THREADS % 32 == 0 and 32 % qpk.MIN_GROUP == 0 and qpk.MAX_GROUP == 32
+    assert qpk.launch_shape(7) == (8, 1)  # the CBF-QP path: four problems a warp
+    assert qpk.launch_shape(153) == (32, 8)  # Manipulator2D scale: a warp, rows in registers
+    assert qpk.launch_shape(257) == (32, 0)  # past 256 rows: in global memory
     for n in range(1, qpk.MAX_N + 1):  # every n the wrapper accepts is instantiated
-        assert f"launch<{n}>" in text
+        assert f"case {n}: QP_N({n})" in text or f"default: QP_N({n})" in text
+
+
+def ieee_sqrt(t):
+    """float32 square root, correctly rounded: in float64, then rounded
+    once more (exact, since 53 >= 2 * 24 + 2 bits)."""
+    return torch.ops.aten.sqrt(t.double()).to(t.dtype)
+
+
+@pytest.fixture(scope="module")
+def cpu_lib(tmp_path_factory):
+    """``csrc/qp_admm_kernel.cu`` built for the CPU under the warp emulation."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the CUDA source for the CPU")
+    lib = cuda_on_cpu.build(CSRC / "qp_admm_kernel.cu", tmp_path_factory.mktemp("qp_cpu"))
+    lib.qp_admm_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    lib.qp_admm_launch.restype = ctypes.c_int
+    lib.qp_admm_shape.restype = None
+    return lib
+
+
+def test_launch_shape_matches_cuda_source(cpu_lib):
+    g, r = ctypes.c_int(), ctypes.c_int()
+    for m in range(1, 600):
+        cpu_lib.qp_admm_shape(m, ctypes.byref(g), ctypes.byref(r))
+        assert (g.value, r.value) == qpk.launch_shape(m), m
+
+
+@pytest.mark.parametrize("batch,n,m,iters", [
+    (9, 2, 7, 1600),   # the CBF-QP path: two full warps of 4 groups, and 3 copies of the last
+    (3, 3, 153, 16),   # Manipulator2D scale: a warp a problem, 5 of 8 register slots used
+    (9, 2, 5, 200),    # m not a multiple of G: 3 idle lanes a group
+    (5, 4, 40, 40),    # G = 32, the second slot partly filled
+    (2, 2, 300, 8),    # past 256 rows: a lane's rows in global memory
+])
+def test_cuda_source_on_the_cpu_matches_plain_version(cpu_lib, monkeypatch, batch, n, m, iters):
+    """The kernel's CUDA source, built for the CPU under the warp emulation
+    (no FMA contraction, as ``-fmad=false`` on the card), against the plain
+    sweep ``_sweep_plain`` on the same equilibrated problems: bit for bit,
+    since the kernel uses only +, -, *, /, sqrtf and min/max and takes every
+    sum over rows in index order by shuffle.  The plain version gets the
+    correctly rounded square root that ``sqrtf`` and the card's
+    ``torch.sqrt`` compute: PyTorch's float32 CPU ``torch.sqrt`` (its
+    AVX-512 kernel) is not always (2.0936923 gives 1.4469596, IEEE
+    1.4469597), which moves the rho of 1 of the 9 problems at n=2, m=7."""
+    monkeypatch.setattr(torch, "sqrt", ieee_sqrt)
+    qps = cbf_qps(batch) if (n, m) == (2, 7) else random_qps(m, batch, n, m)
+    s = tqp.equilibrate(*interop.qp_from_numpy(*qps))
+    x = torch.full((batch, n), float("nan"))
+    z = torch.full((batch, m), float("nan"))
+    y = torch.full((batch, m), float("nan"))
+    args = (iters, 1.0, 1e-6, 1.6)
+    assert cpu_lib.qp_admm_launch(*(t.data_ptr() for t in (s.P, s.q, s.A, s.l, s.u, x, z, y)),
+                                  batch, n, m, max(iters // qpk.N_STAGES, 1),
+                                  *(qpk._f32(a) for a in args[1:]), None) == 0
+    x_p, y_p = qpk._sweep_plain(s.P, s.q, s.A, s.l, s.u, *args)
+    assert torch.isfinite(x_p).all()
+    assert torch.equal(x, x_p) and torch.equal(y, y_p)
 
 
 @pytest.mark.gpu
-def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch):
+@pytest.mark.parametrize("batch,m", [(1, 7), (17, 7), (64, 7), (4097, 7), (256, 153)])
+def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch, batch, m):
     """On a card: the kernel against its plain version on the same inputs,
-    and the CUDA path never runs the plain sweep."""
-    ins = [t.to(cuda_device) for t in interop.qp_from_numpy(*cbf_qps(64))]
-    plain = qpk.solve_qp_batch_reference(*ins)
+    the CBF-QP path's shape with a lone group, a partly filled warp and a
+    ragged block, and the Manipulator2D scale (feasible QPs, 300
+    iterations); the CUDA path never runs the plain sweep."""
+    if m == 7:
+        qps, iters, tol = cbf_qps(batch), 1600, 1e-3
+    else:
+        P, q, A, l, u = random_qps(7, batch, 3, m, one_sided=100)
+        Ax = np.einsum("bmn,bn->bm", A, np.random.default_rng(8).normal(size=(batch, 3)))
+        l, u = Ax - (u - l) / 2, Ax + (u - l) / 2  # feasible: the bounds bracket A x_star
+        u[:, :100] = np.inf
+        qps, iters, tol = (P, q, A, l, u), 300, 2e-3
+    ins = [t.to(cuda_device) for t in interop.qp_from_numpy(*qps)]
+    plain = qpk.solve_qp_batch_reference(*ins, iters=iters)
     before = qpk.LAUNCH_COUNT
 
     def refuse(*a, **k):
@@ -174,11 +254,16 @@ def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch):
 
     monkeypatch.setattr(qpk, "solve_qp_batch_reference", refuse)
     monkeypatch.setattr(qpk, "_sweep_plain", refuse)
-    kern = qpk.solve_qp_batch(*ins)
+    kern = qpk.solve_qp_batch(*ins, iters=iters)
     torch.cuda.synchronize()
     assert qpk.LAUNCH_COUNT == before + 1
-    assert (kern.x - plain.x).abs().max().item() < 1e-3
-    assert torch.equal(kern.prim_res < 1e-3, plain.prim_res < 1e-3)
+    if m == 7:
+        assert (kern.x - plain.x).abs().max().item() < tol
+        assert torch.equal(kern.prim_res < 1e-3, plain.prim_res < 1e-3)
+    else:
+        both = (kern.prim_res < 1e-4) & (plain.prim_res < 1e-4)
+        assert int(both.sum()) * 4 >= 3 * batch
+        assert (kern.x - plain.x).abs().amax(-1)[both].max().item() < tol
     with pytest.raises(NotImplementedError):
         qpk.solve_qp_batch(*(t.double() for t in ins))
 
