@@ -44,8 +44,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    alone) and its plain version, and CBF-QP steps/s through the kernel and
    through the general path; the kernel's operation count, bound and share
    reached.
-9. Reports the generic fused MPC kernel's build: seconds, and registers,
-   stack, spills and dynamic shared memory per model instantiation.
+9. Reports the generic fused MPC kernel's build: seconds, threads a block,
+   and registers, stack, spills, dynamic shared memory and blocks an SM (the
+   CUDA occupancy calculator) per model instantiation.
 10. Holds the fused kernel against its plain version (max |du| < 5e-3,
     max |dxs| < 5e-3, viol atol 1e-3, the JAX package's kernel-class
     envelope): (a) Quad3D N=10 at B=4096, cold start and the warm start one
@@ -59,13 +60,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
     (Quad3D N=10 through ``mpc_cbf.solve_dispatch``), for 5 warm-started
     steps: finite outputs of the right shapes, at least 5 fused kernel
     launches, each step's first 64 robots within 5e-3 of the plain version.
-12. Times the fused kernel and its plain version at B=4096, the fused path's
-    solves/s through the kernel and through the general solve, the kernel's
-    operation count, bound and share reached (active rows counted in phase
-    10a), and the single-robot latency: microseconds per solve over a chain
-    of warm-started B=1 ``solve_dispatch`` calls, Quad3D N=10 and DU N=8,
-    25 through the fused kernel and 5 through the general solve (seconds a
-    solve, host-bound).
+12. Times the fused kernel at B=1, 4096 and 16384 and its plain version at
+    B=4096, the fused path's solves/s through the kernel and through the
+    general solve, the kernel's operation count, bound and share reached
+    (active rows counted in phase 10a), and the single-robot latency:
+    microseconds per solve over a chain of warm-started B=1
+    ``solve_dispatch`` calls, Quad3D N=10 and DU N=8, 25 through the fused
+    kernel and 5 through the general solve (seconds a solve, host-bound).
 
 Every time is printed beside the card's name and power limit.  Prints one
 JSON line of per-kernel numbers (with each kernel's bound and launches a
@@ -598,9 +599,12 @@ def main() -> None:
     for model, regs, frame in fused_ptxas(info["ptxas"]):
         sp, cf = shapes[model]
         smem = mf.shared_memory_bytes(model, sp, entry.DT, cf)
-        report.append(f"{model} N={cf.horizon}: {regs}, {frame}, {smem} bytes dynamic shared")
+        per_sm = mf.blocks_per_sm(model, sp, entry.DT, cf)
+        report.append(f"{model} N={cf.horizon}: {regs}, {frame}, {smem} bytes dynamic shared, "
+                      f"{per_sm} blocks an SM")
+    threads = _build.load_mpc_fused_kernel().mpc_fused_threads()
     print(f"phase 9 build: mpc_fused_kernel {info['seconds']:.1f} s (cached={info['cached']}, "
-          f"built beside the other two); " + " | ".join(report))
+          f"built beside the other two), {threads}-thread blocks; " + " | ".join(report))
     if len(report) != len(mf.MODEL_IDS):
         raise SystemExit("phase 9 failed: not every model has a fused kernel instantiation")
 
@@ -726,6 +730,13 @@ def main() -> None:
     run_fp = lambda: mf.solve_fused_batch_reference(QUAD_3D, q3_spec, *fargs, entry.DT, q3_cfg)
     run_fk()
     f_ms = sync_time(run_fk, 5)
+    # one problem's critical path (B=1) and four times the batch (B=16384)
+    f_sizes_ms = {}
+    for b_, reps in ((1, 20), (16384, 3)):
+        ins = [t[:1] for t in fargs] if b_ == 1 else entry.build_fused_step(b_, device=dev)[1]
+        run = lambda: mf.solve_fused_batch(QUAD_3D, q3_spec, *ins, entry.DT, q3_cfg)
+        run()
+        f_sizes_ms[b_] = sync_time(run, reps)
     run_fp()
     f_plain_ms = sync_time(run_fp, 1)
     fstep_g, _ = entry.build_fused_step(BATCH, device=dev, use_fused_kernel=False)
@@ -735,6 +746,8 @@ def main() -> None:
     fstep_ms_k = sync_time(fstep_kernel, 5)
     fstep_general()
     fstep_ms_g = sync_time(fstep_general, 1)
+    print(f"phase 12 [{card}] Quad3D N=10: fused kernel at B=1 {f_sizes_ms[1]:.4f} ms, "
+          f"B={BATCH} {f_ms:.4f} ms, B=16384 {f_sizes_ms[16384]:.4f} ms")
     print(f"phase 12 [{card}] B={BATCH} Quad3D N=10: fused kernel {f_ms:.3f} ms/solve-batch vs "
           f"plain version {f_plain_ms:.1f} ms; fused path {BATCH / fstep_ms_k * 1e3:.1f} solves/s "
           f"({fstep_ms_k:.3f} ms/step) through the kernel vs {BATCH / fstep_ms_g * 1e3:.1f} "

@@ -141,7 +141,9 @@ def load_mpc_fused_kernel() -> ctypes.CDLL:
             [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         )
         lib.mpc_fused_launch.restype = ctypes.c_int
-        lib.mpc_fused_shared_bytes.argtypes = [ctypes.c_int] * 5
-        lib.mpc_fused_shared_bytes.restype = ctypes.c_int
+        for fn in (lib.mpc_fused_shared_bytes, lib.mpc_fused_blocks_per_sm):
+            fn.argtypes = [ctypes.c_int] * 5
+            fn.restype = ctypes.c_int
+        lib.mpc_fused_threads.restype = ctypes.c_int
         _LIBS["mpc_fused_kernel"] = lib
     return lib

@@ -11,8 +11,9 @@
 // under vmap over the M basis tangents computes in the plain version,
 // solvers/mpc_fused.py::solve_fused_batch_reference.
 //
-// Per Newton step: the dual rollouts; grad = 2 Jr'r - Jc'act and row d of
-// H = 2 Jr'Jr + rho Jca'Jca by thread d; the trace-scaled damping and the
+// Per Newton step: the dual rollouts; the active constraint rows listed in
+// index order; grad = 2 Jr'r - Jc'act and H = 2 Jr'Jr + rho Jca'Jca over
+// every thread of the block (below); the trace-scaled damping and the
 // projected free set; a left-looking Cholesky in shared memory with the
 // pivot clamp sqrt(max(s, 1e-20)), one column at a time with the rows across
 // threads; right-looking forward and back substitutions; the six line-search
@@ -21,13 +22,24 @@
 // the plain version's order, and the file is built with -fmad=false and no
 // fast math, so the two can agree to rounding.
 //
-// What bounds it: shared-memory traffic and the FP32 instruction rate of
-// the Jr'Jr and Jc'Jc products (M * M * (NR + NC) multiply-adds per Newton
-// step, M * (NR + NC) of them in series on each thread), and the 3 M
-// barriers of the factorisation and substitutions.  DRAM traffic is a
-// few hundred bytes a problem.  The block is 32 * ceil(M / 32) threads;
-// shared memory is 58 KB at Quad3D N=10 (M=40) and 137 KB at VTOL2D N=16
-// (M=64), so three blocks share an SM at the first and one at the second.
+// H is symmetric, so only its upper triangle is summed: the block's threads
+// take 2x2 tiles of entries (a, b), a <= b, one accumulator an entry (four
+// independent chains, four shared loads in flight a row), and each entry is
+// written to (a, b) and mirrored to (b, a).  An entry is the sum of the same
+// products in the same order as a whole row by one thread would give
+// (x * y rounds as y * x), and the Jc'Jc sum runs over the listed active
+// rows only, the terms a test act > 0 would keep.  grad's M entries follow
+// the tiles in the block's list of work items, one entry a thread.
+//
+// What bounds it: the latency of each block's serial path; DRAM traffic is
+// a few hundred bytes a problem.  With one part of the Newton step skipped
+// at a time (fused_kernel_ab.py; NVIDIA H100 80GB HBM3, 700 W; Quad3D N=10,
+// B=1, 1.68 ms a solve), the factor and substitutions (3 M barriers) take
+// 0.70 ms, the dual rollouts 0.25, the line search's rollouts 0.25, grad and
+// H 0.18.  Jr and Jc are read only while grad and H are formed, so L and
+// the line search's arrays reuse their space: the layout takes 44,872 bytes
+// of shared memory at Quad3D N=10 (M=40) and 111,012 at VTOL2D N=16
+// (M=64), room for five and two 128-thread blocks an SM.
 //
 // Layout: row-major (B, ...) inputs, one problem per block; no transpose.
 
@@ -46,6 +58,15 @@ constexpr int OBS_DIM = 7;
 constexpr int COMMON = 9;  // rho0, growth, rho_max, reg, gain a, gain b, radius, beta, dt
 constexpr float NOISE_EPS = (float)(4.0 * 1.1920928955078125e-07);  // 4 eps_f32
 
+// Threads a block (at least M = 64, the widest decision vector admitted),
+// and the blocks an SM that the register allocation must leave room for:
+// five, as many as Quad3D N=10's shared memory allows, hold a thread to 96
+// registers (Quad3D fits without spills, VTOL2D spills about 100 bytes).
+// Of 4 or 5 blocks and 64, 96 or 128 threads, the fastest at B=4096.
+constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 5;
+static_assert(THREADS % 32 == 0 && THREADS >= 64, "a block is whole warps, one thread a variable");
+
 __device__ __forceinline__ float alpha_at(int i) {
   switch (i) {
     case 0: return 1.0f;
@@ -60,21 +81,31 @@ __device__ __forceinline__ float alpha_at(int i) {
 // Sizes of one configuration and where each array lives in shared memory.
 struct Layout {
   int n, m, N, K, NB, M, NR, NC, nP;
-  int P, x0, goal, uprev, obs, Jr, Jc, H, L, r0, c0, act0, lam, cs, U, stp, grad, gf, fr, tmp,
-      w, Hs, cand, ra, ca, dv, sc, hp, total;
-  __host__ __device__ Layout(int n_, int m_, int N_, int K_, int NB_, int nP_, int threads)
+  int P, x0, goal, uprev, obs, Jr, Jc, L, cand, ra, ca, H, r0, c0, act0, lam, cs, U, stp, grad,
+      gf, fr, tmp, w, Hs, dv, sc, hp, act, total;
+  __host__ __device__ Layout(int n_, int m_, int N_, int K_, int NB_, int nP_)
       : n(n_), m(m_), N(N_), K(K_), NB(NB_), M(N_ * m_), NR(N_ * (n_ + m_)),
         NC(N_ * K_ + 2 * N_ * NB_), nP(nP_) {
     total = 0;
     P = take(nP); x0 = take(n); goal = take(n); uprev = take(m);
     obs = take(K * 9);
-    Jr = take(NR * M); Jc = take(NC * M); H = take(M * M); L = take(M * M);
+    // Jr and Jc live from the rollouts until grad and H are formed; L and
+    // the line search's candidates and rows then take their place.
+    Jr = L = total;
+    Jc = Jr + NR * M;
+    cand = L + M * M;
+    ra = cand + NUM_ALPHAS * M;
+    ca = ra + NUM_ALPHAS * NR;
+    take(max_of(M * (NR + NC), M * M + NUM_ALPHAS * (M + NR + NC)));
+    H = take(M * M);
     r0 = take(NR); c0 = take(NC); act0 = take(NC); lam = take(NC); cs = take(NC);
     U = take(M); stp = take(M); grad = take(M); gf = take(M); fr = take(M); tmp = take(M);
     w = take(M); Hs = take(M);
-    cand = take(NUM_ALPHAS * M); ra = take(NUM_ALPHAS * NR); ca = take(NUM_ALPHAS * NC);
     dv = take(NUM_ALPHAS); sc = take(8);
-    hp = take(threads * K * 2);  // per-thread barrier values of the previous stage
+    // Per-thread barrier values of the previous stage in the rollouts; while
+    // grad and H are formed, the count and list of active constraint rows.
+    hp = act = total;
+    take(max_of(max_of(M, NUM_ALPHAS) * K * 2, NC + 1));
   }
   // The offset of the next ``count`` floats.
   __host__ __device__ int take(int count) {
@@ -82,6 +113,7 @@ struct Layout {
     total += count;
     return at;
   }
+  __host__ __device__ static int max_of(int a, int b) { return a > b ? a : b; }
 };
 
 // The decision vector as a thread sees it: values only, or values with a
@@ -212,25 +244,71 @@ __device__ void newton_step(const Layout& lo, float* sh, const Obstacle* obs, fl
                            js);
   }
   __syncthreads();
+  const float* act0 = sh + lo.act0;
   for (int i = tid; i < NC; i += blockDim.x) {
     sh[lo.act0 + i] = fmaxf(0.0f, sh[lo.lam + i] - rho * sh[lo.c0 + i]);
   }
   __syncthreads();
+  // The active rows in index order: act[0] of them, in act[1..].
+  int* act = reinterpret_cast<int*>(sh + lo.act);
+  if (tid == 0) {
+    int count = 0;
+    for (int i = 0; i < NC; ++i) {
+      if (act0[i] > 0.0f) act[++count] = i;
+    }
+    act[0] = count;
+  }
+  __syncthreads();
 
-  // grad and row a of H (the full row: the plain version forms both halves).
-  if (tid < M) {
-    const int a = tid;
-    float g1 = 0.0f, g2 = 0.0f;
-    for (int i = 0; i < NR; ++i) g1 = g1 + Jr[i * M + a] * sh[lo.r0 + i];
-    for (int i = 0; i < NC; ++i) g2 = g2 + Jc[i * M + a] * sh[lo.act0 + i];
-    sh[lo.grad + a] = 2.0f * g1 - g2;
-    for (int b = 0; b < M; ++b) {
-      float s1 = 0.0f, s2 = 0.0f;
-      for (int i = 0; i < NR; ++i) s1 = s1 + Jr[i * M + a] * Jr[i * M + b];
-      for (int i = 0; i < NC; ++i) {
-        if (sh[lo.act0 + i] > 0.0f) s2 = s2 + Jc[i * M + a] * Jc[i * M + b];
+  // The upper triangle of H in 2x2 tiles, then grad, over the block.
+  const int pairs = (M + 1) / 2;
+  const int tiles = pairs * (pairs + 1) / 2;
+  for (int item = tid; item < tiles + M; item += blockDim.x) {
+    if (item >= tiles) {
+      const int a = item - tiles;
+      float g1 = 0.0f, g2 = 0.0f;
+#pragma unroll 4
+      for (int i = 0; i < NR; ++i) g1 = g1 + Jr[i * M + a] * sh[lo.r0 + i];
+#pragma unroll 4
+      for (int i = 0; i < NC; ++i) g2 = g2 + Jc[i * M + a] * act0[i];
+      sh[lo.grad + a] = 2.0f * g1 - g2;
+      continue;
+    }
+    int p = 0, q = item;  // tile (p, p + q) of the row-major upper triangle
+    while (q >= pairs - p) {
+      q -= pairs - p;
+      ++p;
+    }
+    const int a0 = 2 * p, b0 = 2 * (p + q);
+    const int a1 = min(a0 + 1, M - 1), b1 = min(b0 + 1, M - 1);  // an odd M repeats the last
+    float s00 = 0.0f, s01 = 0.0f, s10 = 0.0f, s11 = 0.0f;
+#pragma unroll 4
+    for (int i = 0; i < NR; ++i) {
+      const float* row = Jr + i * M;
+      const float x0 = row[a0], x1 = row[a1], y0 = row[b0], y1 = row[b1];
+      s00 = s00 + x0 * y0;
+      s01 = s01 + x0 * y1;
+      s10 = s10 + x1 * y0;
+      s11 = s11 + x1 * y1;
+    }
+    float c00 = 0.0f, c01 = 0.0f, c10 = 0.0f, c11 = 0.0f;
+    const int n_act = act[0];
+    for (int k = 1; k <= n_act; ++k) {
+      const float* row = Jc + act[k] * M;
+      const float x0 = row[a0], x1 = row[a1], y0 = row[b0], y1 = row[b1];
+      c00 = c00 + x0 * y0;
+      c01 = c01 + x0 * y1;
+      c10 = c10 + x1 * y0;
+      c11 = c11 + x1 * y1;
+    }
+    const float e[4] = {2.0f * s00 + rho * c00, 2.0f * s01 + rho * c01, 2.0f * s10 + rho * c10,
+                        2.0f * s11 + rho * c11};
+    for (int k = 0; k < 4; ++k) {
+      const int a = a0 + (k >> 1), b = b0 + (k & 1);
+      if (a < M && b < M) {
+        H[a * M + b] = e[k];
+        H[b * M + a] = e[k];
       }
-      H[a * M + b] = 2.0f * s1 + rho * s2;
     }
   }
   __syncthreads();
@@ -365,15 +443,16 @@ __device__ void newton_step(const Layout& lo, float* sh, const Obstacle* obs, fl
 }
 
 template <class Model>
-__global__ void mpc_fused_kernel(const float* __restrict__ x0, const float* __restrict__ goal,
-                                 const float* __restrict__ obs, const float* __restrict__ uprev,
-                                 const float* __restrict__ U0, const float* __restrict__ params,
-                                 float* __restrict__ U_out, float* __restrict__ xs_out,
-                                 float* __restrict__ viol_out, int N, int K, int NB, int nP,
-                                 int outer, int newton) {
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    mpc_fused_kernel(const float* __restrict__ x0, const float* __restrict__ goal,
+                     const float* __restrict__ obs, const float* __restrict__ uprev,
+                     const float* __restrict__ U0, const float* __restrict__ params,
+                     float* __restrict__ U_out, float* __restrict__ xs_out,
+                     float* __restrict__ viol_out, int N, int K, int NB, int nP, int outer,
+                     int newton) {
   extern __shared__ float sh[];
   constexpr int n = Model::n, m = Model::m;
-  const Layout lo(n, m, N, K, NB, nP, blockDim.x);
+  const Layout lo(n, m, N, K, NB, nP);
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int M = lo.M, NC = lo.NC;
@@ -463,58 +542,30 @@ __global__ void mpc_fused_kernel(const float* __restrict__ x0, const float* __re
   }
 }
 
+// The block's dynamic shared memory in bytes, after the kernel is allowed
+// that much and the largest shared-memory carveout; a CUDA error code (> 0)
+// if either is refused.
 template <class Model>
-int launch(const void* x0, const void* goal, const void* obs, const void* uprev, const void* U0,
-           const void* params, void* U_out, void* xs_out, void* viol, int B, int N, int K, int NB,
-           int nP, int outer, int newton, cudaStream_t stream) {
-  const int M = N * Model::m;
-  const int threads = 32 * ((M + 31) / 32);
-  const Layout lo(Model::n, Model::m, N, K, NB, nP, threads);
-  const size_t bytes = static_cast<size_t>(lo.total) * sizeof(float);
+int configure(int N, int K, int NB, int nP, size_t* bytes) {
+  *bytes = static_cast<size_t>(Layout(Model::n, Model::m, N, K, NB, nP).total) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(mpc_fused_kernel<Model>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mpc_fused_kernel<Model><<<B, threads, bytes, stream>>>(
-      static_cast<const float*>(x0), static_cast<const float*>(goal),
-      static_cast<const float*>(obs), static_cast<const float*>(uprev),
-      static_cast<const float*>(U0), static_cast<const float*>(params),
-      static_cast<float*>(U_out), static_cast<float*>(xs_out), static_cast<float*>(viol), N, K,
-      NB, nP, outer, newton);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// Dynamic shared memory (bytes) of one block, for the build report.
-extern "C" int mpc_fused_shared_bytes(int model, int N, int K, int NB, int nP) {
-  int n, m;
-  switch (model) {
-    case 0: n = SingleIntegrator2D::n; m = SingleIntegrator2D::m; break;
-    case 1: n = DoubleIntegrator2D::n; m = DoubleIntegrator2D::m; break;
-    case 2: n = DynamicUnicycle2D::n; m = DynamicUnicycle2D::m; break;
-    case 3: n = Quad3D::n; m = Quad3D::m; break;
-    case 4: n = VTOL2D::n; m = VTOL2D::m; break;
-    default: return -1;
+                                         static_cast<int>(*bytes));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(mpc_fused_kernel<Model>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   }
-  const int M = N * m;
-  const Layout lo(n, m, N, K, NB, nP, 32 * ((M + 31) / 32));
-  return lo.total * static_cast<int>(sizeof(float));
+  return static_cast<int>(err);
 }
 
-// model: 0 SingleIntegrator2D, 1 DoubleIntegrator2D, 2 DynamicUnicycle2D,
-// 3 Quad3D, 4 VTOL2D (solvers/mpc_fused.py::MODEL_IDS).  Returns a CUDA
-// error code; -1 for an unknown model.
-extern "C" int mpc_fused_launch(int model, const void* x0, const void* goal, const void* obs,
-                                const void* uprev, const void* U0, const void* params,
-                                void* U_out, void* xs_out, void* viol, int B, int N, int K,
-                                int NB, int nP, int outer, int newton, void* stream) {
-  if (B <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MPC_FUSED_CASE(ID, MODEL)                                                              \
-  case ID:                                                                                     \
-    return launch<MODEL>(x0, goal, obs, uprev, U0, params, U_out, xs_out, viol, B, N, K, NB, \
-                         nP, outer, newton, s);
+// ``f(Model{})`` for the model of id ``model``
+// (solvers/mpc_fused.py::MODEL_IDS); -1 for an unknown model.
+template <class F>
+int with_model(int model, F&& f) {
+#define MPC_FUSED_CASE(ID, MODEL) \
+  case ID:                        \
+    return f(MODEL{});
   switch (model) {
     MPC_FUSED_CASE(0, SingleIntegrator2D)
     MPC_FUSED_CASE(1, DoubleIntegrator2D)
@@ -525,4 +576,57 @@ extern "C" int mpc_fused_launch(int model, const void* x0, const void* goal, con
       return -1;
   }
 #undef MPC_FUSED_CASE
+}
+
+}  // namespace
+
+// Dynamic shared memory (bytes) of one block, for the build report.
+extern "C" int mpc_fused_shared_bytes(int model, int N, int K, int NB, int nP) {
+  return with_model(model, [&](auto mdl) {
+    using Model = decltype(mdl);
+    return Layout(Model::n, Model::m, N, K, NB, nP).total * static_cast<int>(sizeof(float));
+  });
+}
+
+// Threads a block, for the build report.
+extern "C" int mpc_fused_threads() { return THREADS; }
+
+// Blocks of this configuration that fit on one SM at once (the occupancy
+// calculator, after the launch's shared-memory settings); minus a CUDA
+// error code if a call is refused.
+extern "C" int mpc_fused_blocks_per_sm(int model, int N, int K, int NB, int nP) {
+  return with_model(model, [&](auto mdl) {
+    using Model = decltype(mdl);
+    size_t bytes;
+    int err = configure<Model>(N, K, NB, nP, &bytes);
+    int blocks = 0;
+    if (err == 0) {
+      err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, mpc_fused_kernel<Model>, THREADS, bytes));
+    }
+    return err == 0 ? blocks : -err;
+  });
+}
+
+// model: 0 SingleIntegrator2D, 1 DoubleIntegrator2D, 2 DynamicUnicycle2D,
+// 3 Quad3D, 4 VTOL2D (solvers/mpc_fused.py::MODEL_IDS).  Returns a CUDA
+// error code; -1 for an unknown model.
+extern "C" int mpc_fused_launch(int model, const void* x0, const void* goal, const void* obs,
+                                const void* uprev, const void* U0, const void* params,
+                                void* U_out, void* xs_out, void* viol, int B, int N, int K,
+                                int NB, int nP, int outer, int newton, void* stream) {
+  if (B <= 0) return 0;
+  return with_model(model, [&](auto mdl) {
+    using Model = decltype(mdl);
+    size_t bytes;
+    const int err = configure<Model>(N, K, NB, nP, &bytes);
+    if (err != 0) return err;
+    mpc_fused_kernel<Model><<<B, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x0), static_cast<const float*>(goal),
+        static_cast<const float*>(obs), static_cast<const float*>(uprev),
+        static_cast<const float*>(U0), static_cast<const float*>(params),
+        static_cast<float*>(U_out), static_cast<float*>(xs_out), static_cast<float*>(viol), N,
+        K, NB, nP, outer, newton);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

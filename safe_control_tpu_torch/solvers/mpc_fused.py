@@ -53,6 +53,12 @@ ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.0)
 LAUNCH_COUNT = 0
 DISPATCH_COUNT = 0
 
+# The kernel's parameter block on each device, by its values: a call with a
+# configuration seen before copies nothing to the card (a copy from pageable
+# host memory would make the host wait for the launch before it).
+_DEVICE_PARAMS: dict = {}
+_DEVICE_PARAMS_MAX = 64
+
 
 class FusedResult(NamedTuple):
     u: torch.Tensor  # (B, m) first controls
@@ -151,8 +157,7 @@ def solve_fused_batch(model_name, spec, xs, goals, obs, u_prevs, U_warm, dt,
     B, M = xs.shape[0], pb.N * pb.m
     ins = [t.contiguous() for t in (xs, goals, obs, u_prevs)]
     U0 = _warm_start(U_warm).reshape(B, M).contiguous()
-    params = torch.tensor(kernel_params(model_name, spec, dt, cfg), dtype=torch.float32,
-                          device=xs.device)
+    params = _device_params(kernel_params(model_name, spec, dt, cfg), xs.device)
     U_out = torch.empty((B, M), dtype=torch.float32, device=xs.device)
     xs_out = torch.empty((B, (pb.N + 1) * pb.n), dtype=torch.float32, device=xs.device)
     viol = torch.empty((B,), dtype=torch.float32, device=xs.device)
@@ -172,15 +177,45 @@ def solve_fused_batch(model_name, spec, xs, goals, obs, u_prevs, U_warm, dt,
                        viol=viol)
 
 
+def _device_params(values: list, device: torch.device) -> torch.Tensor:
+    """``values`` as a float32 tensor on ``device``, made once per values and
+    device (the oldest are dropped past ``_DEVICE_PARAMS_MAX``)."""
+    key = (tuple(values), device)
+    params = _DEVICE_PARAMS.get(key)
+    if params is None:
+        if len(_DEVICE_PARAMS) >= _DEVICE_PARAMS_MAX:
+            del _DEVICE_PARAMS[next(iter(_DEVICE_PARAMS))]
+        params = _DEVICE_PARAMS[key] = torch.tensor(values, dtype=torch.float32, device=device)
+    return params
+
+
 def shared_memory_bytes(model_name, spec, dt, cfg) -> int:
     """Dynamic shared memory of one block of the CUDA kernel (asks the
     built library, which sizes the launch by the same layout)."""
     from safe_control_tpu_torch import _build
 
-    pb = _problem(model_name, spec, cfg)
     return _build.load_mpc_fused_kernel().mpc_fused_shared_bytes(
-        MODEL_IDS[model_name], pb.N, pb.K, len(pb.bounded),
-        len(kernel_params(model_name, spec, dt, cfg)))
+        *_shape_args(model_name, spec, dt, cfg))
+
+
+def blocks_per_sm(model_name, spec, dt, cfg) -> int:
+    """Blocks of the CUDA kernel that fit on one SM of the current card at
+    once, by the CUDA occupancy calculator after the launch's settings."""
+    from safe_control_tpu_torch import _build
+
+    blocks = _build.load_mpc_fused_kernel().mpc_fused_blocks_per_sm(
+        *_shape_args(model_name, spec, dt, cfg))
+    if blocks < 0:
+        raise RuntimeError(f"mpc_fused_blocks_per_sm failed: CUDA error {-blocks}")
+    return blocks
+
+
+def _shape_args(model_name, spec, dt, cfg) -> tuple:
+    """(model id, N, K, bound rows, parameter count): a configuration as
+    the kernel's C entry points take it."""
+    pb = _problem(model_name, spec, cfg)
+    return (MODEL_IDS[model_name], pb.N, pb.K, len(pb.bounded),
+            len(kernel_params(model_name, spec, dt, cfg)))
 
 
 def solve_fused_single(model_name, spec, x0, goal, obs, u_prev, mpc_state, dt,

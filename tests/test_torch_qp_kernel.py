@@ -172,12 +172,6 @@ def test_cuda_source_constants_match_module():
         assert f"case {n}: QP_N({n})" in text or f"default: QP_N({n})" in text
 
 
-def ieee_sqrt(t):
-    """float32 square root, correctly rounded: in float64, then rounded
-    once more (exact, since 53 >= 2 * 24 + 2 bits)."""
-    return torch.ops.aten.sqrt(t.double()).to(t.dtype)
-
-
 @pytest.fixture(scope="module")
 def cpu_lib(tmp_path_factory):
     """``csrc/qp_admm_kernel.cu`` built for the CPU under the warp emulation."""
@@ -215,7 +209,7 @@ def test_cuda_source_on_the_cpu_matches_plain_version(cpu_lib, monkeypatch, batc
     ``torch.sqrt`` compute: PyTorch's float32 CPU ``torch.sqrt`` (its
     AVX-512 kernel) is not always (2.0936923 gives 1.4469596, IEEE
     1.4469597), which moves the rho of 1 of the 9 problems at n=2, m=7."""
-    monkeypatch.setattr(torch, "sqrt", ieee_sqrt)
+    monkeypatch.setattr(torch, "sqrt", cuda_on_cpu.ieee_sqrt)
     qps = cbf_qps(batch) if (n, m) == (2, 7) else random_qps(m, batch, n, m)
     s = tqp.equilibrate(*interop.qp_from_numpy(*qps))
     x = torch.full((batch, n), float("nan"))
