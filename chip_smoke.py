@@ -68,9 +68,33 @@ Run from the root of a checkout:  python3 chip_smoke.py
     ``solve_dispatch`` calls, Quad3D N=10 and DU N=8, 25 through the fused
     kernel and 5 through the general solve (seconds a solve, host-bound).
 
-Every time is printed beside the card's name and power limit.  Prints one
-JSON line of per-kernel numbers (with each kernel's bound and launches a
-step), then, as the last line,
+13. The tracking loop, one robot: the DynamicUnicycle2D MPC-CBF scenario of
+    ``tests/test_tracking_e2e.py`` (N=8, K=5, the 8x3 budget, tf 120 s)
+    through ``sim.controller.LocalTrackingController(device="cuda")`` with
+    ``use_fused_kernel``.  Gates: the run ends in RET_DONE and never returns
+    RET_INFEASIBLE, every waypoint is passed within 0.35 m, the fused
+    kernel launches once a control step, and no fused-fallback reason is
+    logged.  Prints ms per control step (host clock) beside the 50 ms
+    period.
+14. The same for the DoubleIntegrator2D CBF-QP scenario (1600 ADMM
+    iterations, tf 100 s): the same gates, with one QP kernel launch a
+    control step.
+15. A fleet through ``sim.tracking.run`` at B=4096: the DoubleIntegrator2D
+    CBF-QP scenario for 2000 steps (robot 0 at the scenario's start, the
+    others within +-0.1 m of it, from ``np.random.default_rng(0)``) and
+    the DynamicUnicycle2D MPC-CBF one through the fused kernel for 50
+    steps.  Gates: one kernel launch a step; robot 0 meets phase 14's
+    predicates; for the first 64 robots, the first 20 (DI) and 5 (DU)
+    recorded steps' controls within QP_U_TOL / U_TOL of ``tracking.step``
+    run again on the recorded state with the kernel's plain version bound
+    in its place.  Reports the share of robots that end in RET_DONE or
+    RET_INFEASIBLE, robot-steps/s, ms a step and the kernel's share of the
+    step (CUDA events around the launch, over the replayed steps).
+
+Every time is printed beside the card's name and power limit, and each
+phase's wall seconds from phase 13 on.  Prints one JSON line of per-kernel
+numbers (with each kernel's bound and launches a step), then, as the last
+line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device and
 when any check fails.
 """
@@ -78,6 +102,7 @@ when any check fails.
 from __future__ import annotations
 
 import json
+import logging
 import re
 import subprocess
 import sys
@@ -96,6 +121,18 @@ QP_WIDE_TOL = 2e-3  # at m=153, and against the general solve_qp (JAX's envelope
 QP_U_TOL = 1e-3  # CBF-QP path: first 64 robots vs the plain version
 CHAIN = 25  # warm-started B=1 solves timed for the single-robot latency
 CHAIN_GENERAL = 5  # the same through the general solve (host-bound, seconds a solve)
+FLEET = 4096  # robots of the tracking fleet (phase 15)
+FLEET_DI_STEPS = 2000  # the DI scenario's 100 s at dt 0.05
+FLEET_DU_STEPS = 50
+REPLAY = {"cbf_qp": 20, "mpc_cbf": 5}  # fleet steps replayed with the plain version
+PASS_TOL = 0.35  # every waypoint passed this close (tests/test_tracking_e2e.py)
+# The scenario of tests/test_tracking_e2e.py (examples/test_tracking.py).
+WAYPOINTS = [[2, 2, 1.5707963267948966], [2, 12, 0], [12, 12, 0], [12, 2, 0]]
+KNOWN_OBS = [
+    [2.2, 5.0, 0.2], [3.0, 5.0, 0.2], [4.0, 9.0, 0.3], [1.5, 10.0, 0.5], [9.0, 11.0, 1.0],
+    [7.0, 7.0, 3.0], [4.0, 3.5, 1.5], [10.0, 7.3, 0.4], [6.0, 13.0, 0.7], [5.0, 10.0, 0.6],
+    [11.0, 5.0, 0.8], [13.5, 11.0, 0.6], [2.0, 7.0, 0.7], [2.0, 8.0, 0.5],
+]
 
 
 def card_line() -> str:
@@ -282,6 +319,204 @@ def b3_flops(B, n, m, N, K, NC, step_ops, active_rows):
     per_problem = (M * 2 * rollout + NC * 2 * M + steps * newton
                    + 8 * (rollout + 3 * NC) + rollout + NC)
     return B * per_problem + active_rows * 2 * tri
+
+
+def passes_waypoints(path):
+    """``(passed, distances)``: whether the path ``(T, >=2)`` (numpy) passes
+    within PASS_TOL of every waypoint after the first, and its least
+    distance to each."""
+    import numpy as np
+
+    wps = np.asarray(WAYPOINTS)[1:, :2]
+    d = np.linalg.norm(path[:, None, :2] - wps[None], axis=-1).min(0)
+    return bool((d < PASS_TOL).all()), d
+
+
+class LogRecords(logging.Handler):
+    """Collects the records of a logger (the fused-fallback warnings)."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def single_robot(dev, card, phase, robot_spec, pos_controller, x0, tf, counter):
+    """Drive one robot through ``LocalTrackingController(device=dev)`` over
+    the scenario until a terminal code or ``tf``; gate it, print it and
+    return ``(steps, ms a control step)``."""
+    import numpy as np
+
+    from safe_control_tpu_torch.sim import tracking
+    from safe_control_tpu_torch.sim.controller import LocalTrackingController
+    from safe_control_tpu_torch.solvers import mpc_cbf
+
+    t_phase = time.perf_counter()
+    c = LocalTrackingController(x0, robot_spec, controller_type={"pos": pos_controller},
+                                dt=0.05, device=dev)
+    c.obs = np.hstack([np.asarray(KNOWN_OBS), np.zeros((len(KNOWN_OBS), 4))])
+    c.set_waypoints(np.asarray(WAYPOINTS))
+    log = LogRecords()
+    logger = logging.getLogger("safe_control_tpu_torch.solvers")
+    logger.addHandler(log)
+    seen = len(mpc_cbf._FUSED_FALLBACK_SEEN)
+    counter.LAUNCH_COUNT = 0
+    rets, xs = [], [c.state.x[0]]
+    t0 = time.perf_counter()
+    try:
+        for k in range(int(round(tf / c.dt))):
+            if k == 1:  # the first step's first-use costs are not a control period
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            rets.append(c.control_step())
+            xs.append(c.state.x[0])
+            if rets[-1] in (tracking.RET_DONE, tracking.RET_INFEASIBLE):
+                break
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(log)
+    ms = (time.perf_counter() - t0) / max(len(rets) - 1, 1) * 1e3
+    launches = counter.LAUNCH_COUNT
+    passed, dmin = passes_waypoints(torch.stack(xs).cpu().numpy())
+    fallbacks = len(log.records) + len(mpc_cbf._FUSED_FALLBACK_SEEN) - seen
+    name = robot_spec["model"]
+    print(f"phase {phase} [{card}] single robot, {name} {pos_controller} through "
+          f"LocalTrackingController(device='cuda'): {len(rets)} control steps, last code "
+          f"{rets[-1]}, {rets.count(tracking.RET_INFEASIBLE)} infeasible, kernel launches "
+          f"{launches}, fused fallbacks logged {fallbacks}, least distance to waypoints 2-4 "
+          + ", ".join(f"{d:.3f}" for d in dmin)
+          + f" m; {ms:.3f} ms a control step (host clock) against the 50 ms period; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    if not (rets[-1] == tracking.RET_DONE and tracking.RET_INFEASIBLE not in rets and passed
+            and launches == len(rets) and fallbacks == 0):
+        raise SystemExit(f"phase {phase} failed: the {name} {pos_controller} scenario did not "
+                         f"complete cleanly through the kernel")
+    return len(rets), ms
+
+
+def fleet(dev, card, pos_controller, n_steps):
+    """Phase 15: ``tracking.run`` over a fleet of FLEET robots; gated and
+    printed.  Returns ``(launches, ms a step, kernel ms a step)``."""
+    import numpy as np
+
+    from safe_control_tpu_torch.core.spec import (
+        DOUBLE_INTEGRATOR_2D,
+        DYNAMIC_UNICYCLE_2D,
+        make_spec,
+    )
+    from safe_control_tpu_torch.core.types import pad_obstacles
+    from safe_control_tpu_torch.sim import tracking
+    from safe_control_tpu_torch.solvers import mpc_cbf
+    from safe_control_tpu_torch.solvers import mpc_fused as mf
+    from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+    t_phase = time.perf_counter()
+    qp = pos_controller == "cbf_qp"
+    if qp:
+        name, spec = DOUBLE_INTEGRATOR_2D, make_spec(DOUBLE_INTEGRATOR_2D, v_max=1.0, a_max=1.5,
+                                                     radius=0.25)
+    else:
+        name, spec = DYNAMIC_UNICYCLE_2D, make_spec(DYNAMIC_UNICYCLE_2D, w_max=0.5, a_max=1.0,
+                                                    radius=0.25)
+    cfg = tracking.TrackerConfig(
+        model_name=name, pos_controller=pos_controller, dt=0.05,
+        mpc=mpc_cbf.MPCConfig(horizon=8, num_obs=5, use_fused_kernel=True))
+    rng = np.random.default_rng(0)
+    x0 = np.zeros((FLEET, 4))
+    x0[:, :2] = 2.0
+    x0[1:, :2] += rng.uniform(-0.1, 0.1, (FLEET - 1, 2))
+    if not qp:
+        x0[:, 2] = np.pi / 2
+    st0 = tracking.init_state(cfg, spec, torch.as_tensor(x0, dtype=torch.float32, device=dev),
+                              np.pi / 2, first_goal=WAYPOINTS[0][:2])
+    wps = torch.tensor(WAYPOINTS, dtype=torch.float32, device=dev)
+    known = pad_obstacles(KNOWN_OBS, 16, device=dev)
+    args = (wps, len(WAYPOINTS), known)
+    counter = qpk if qp else mf
+    tracking.step(cfg, spec, st0, *args)  # warm-up: first use of every op
+    torch.cuda.synchronize()
+
+    counter.LAUNCH_COUNT = 0
+    t0 = time.perf_counter()
+    final, traj = tracking.run(cfg, spec, st0, *args, n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counter.LAUNCH_COUNT
+    step_ms = wall / n_steps * 1e3
+
+    # The first steps again, one at a time: the states they start from, and
+    # the kernel's time in each (CUDA events around the launch).
+    k, n_replay = N_GENERAL, REPLAY[pos_controller]
+    timed_name = "_sweep_cuda" if qp else "solve_fused_batch"
+    launch = getattr(counter, timed_name)
+    events = []
+
+    def timed(*a, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    states, st, same_x = [], st0, True
+    setattr(counter, timed_name, timed)
+    try:
+        for i in range(n_replay):
+            states.append(type(st)(*(torch.utils._pytree.tree_map(lambda t: t[:k], tuple(st)))))
+            st = tracking.step(cfg, spec, st, *args).state
+            same_x = same_x and torch.equal(st.x, traj["x"][:, i])
+        torch.cuda.synchronize()
+    finally:
+        setattr(counter, timed_name, launch)
+    kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events) / len(events)
+
+    # ... and the first k robots of each with the kernel's plain version bound in its place
+    plain_name = "solve_qp_batch" if qp else "solve_fused_batch"
+    bound_fn = getattr(counter, plain_name)
+    setattr(counter, plain_name, getattr(counter, plain_name + "_reference"))
+    try:
+        dev_plain = [(tracking.step(cfg, spec, sti, *args).u - traj["u"][:k, i]).abs().max().item()
+                     for i, sti in enumerate(states)]
+        torch.cuda.synchronize()
+    finally:
+        setattr(counter, plain_name, bound_fn)
+
+    ret = final.ret
+    done = (ret == tracking.RET_DONE).float().mean().item()
+    infeasible = (ret == tracking.RET_INFEASIBLE).float().mean().item()
+    rets0 = traj["ret"][0].cpu().numpy()
+    path0 = torch.cat([st0.x[:1], traj["x"][0]]).cpu().numpy()
+    passed0, dmin0 = passes_waypoints(path0)
+    robot0_ok = bool(rets0[-1] == tracking.RET_DONE and not (rets0 == tracking.RET_INFEASIBLE).any()
+                     and passed0)
+    tol = QP_U_TOL if qp else U_TOL
+    label = f"{name} {pos_controller}" + ("" if qp else " through the fused kernel")
+    bound_note = ""
+    if qp:  # B2 at this path's shape: n=2, m = the constraint slots + the input box
+        qn, qm = 2, cfg.num_obs + 2
+        b2_bound, b2_by = bound(b2_flops(FLEET, qn, qm, cfg.qp_iters),
+                                FLEET * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+        bound_note = (f" (n={qn}, m={qm}: bound {b2_bound:.4f} ms by {b2_by}, "
+                      f"{100 * b2_bound / kernel_ms:.2f}% of it reached)")
+    print(f"phase 15 [{card}] fleet, {label}: tracking.run of {n_steps} steps at B={FLEET}, "
+          f"kernel launches {launches}; {FLEET * n_steps / wall:.1f} robot-steps/s, "
+          f"{step_ms:.3f} ms a step, the kernel {kernel_ms:.4f} ms a step{bound_note} "
+          f"({100 * kernel_ms / step_ms:.1f}% of the step); at the end {100 * done:.2f}% of the "
+          f"robots RET_DONE and {100 * infeasible:.2f}% RET_INFEASIBLE; robot 0 last code "
+          f"{rets0[-1]}, least distance to waypoints 2-4 " + ", ".join(f"{d:.3f}" for d in dmin0)
+          + f" m; replayed states equal the run's {same_x}; per-step max|du| of {k} robots "
+          f"against the plain version: " + ", ".join(f"{d:.3e}" for d in dev_plain)
+          + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    if launches != n_steps:
+        raise SystemExit(f"phase 15 failed: {launches} kernel launches in {n_steps} steps")
+    if qp and not robot0_ok:
+        raise SystemExit("phase 15 failed: robot 0 of the fleet did not complete the scenario")
+    if not same_x or max(dev_plain) >= tol:
+        raise SystemExit(f"phase 15 failed: the {label} fleet disagrees with the plain version")
+    return launches, step_ms, kernel_ms
 
 
 def main() -> None:
@@ -784,6 +1019,15 @@ def main() -> None:
           f"kernel vs {lat[(QUAD_3D, False)]:.1f} us through the general solve; DU N=8 "
           f"{lat[(DYNAMIC_UNICYCLE_2D, True)]:.1f} vs {lat[(DYNAMIC_UNICYCLE_2D, False)]:.1f} us")
 
+    # ---- phases 13-15: the tracking loop --------------------------------------
+    single_robot(dev, card, 13, {"model": DYNAMIC_UNICYCLE_2D, "w_max": 0.5, "a_max": 1.0,
+                                 "radius": 0.25, "mpc_horizon": 8, "use_fused_kernel": True},
+                 "mpc_cbf", [2.0, 2.0, np.pi / 2, 0.0], 120.0, mf)
+    single_robot(dev, card, 14, {"model": DOUBLE_INTEGRATOR_2D, "v_max": 1.0, "a_max": 1.5,
+                                 "radius": 0.25}, "cbf_qp", [2.0, 2.0, np.pi / 2], 100.0, qpk)
+    qp_fleet = fleet(dev, card, "cbf_qp", FLEET_DI_STEPS)
+    du_fleet = fleet(dev, card, "mpc_cbf", FLEET_DU_STEPS)
+
     print(json.dumps({"kernels": [{
         "name": "mpc_du_kernel",
         "route": "cuda",
@@ -804,6 +1048,9 @@ def main() -> None:
         "replaces": "safe_control_tpu/solvers/qp_kernel.py:101",
         "launches": qp_launches,
         "launches_per_step": qp_launches / STEPS,
+        "tracking_launches": qp_fleet[0],
+        "tracking_launches_per_step": qp_fleet[0] / FLEET_DI_STEPS,
+        "tracking_ms_per_launch": qp_fleet[2],
         "max_abs_err": max(qp_dx, qp_dy),
         "ms": qp_ms,
         "plain_ms": qp_plain_ms,
@@ -817,6 +1064,9 @@ def main() -> None:
         "replaces": "safe_control_tpu/solvers/mpc_fused.py:913",
         "launches": fused_launches,
         "launches_per_step": fused_launches / STEPS,
+        "tracking_launches": du_fleet[0],
+        "tracking_launches_per_step": du_fleet[0] / FLEET_DU_STEPS,
+        "tracking_ms_per_launch": du_fleet[2],
         "max_abs_err": fused_max_err,
         "ms": f_ms,
         "plain_ms": f_plain_ms,

@@ -68,3 +68,45 @@ def angle_normalize(x):
     angles; ``torch.fmod`` would not.
     """
     return torch.remainder(x + math.pi, 2 * math.pi) - math.pi
+
+
+def norm2(v):
+    """Euclidean norm over a last axis of 2, as ``sqrt(v0*v0 + v1*v1)``: the
+    sum that the JAX package's ``jnp.linalg.norm`` of a 2-vector takes."""
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+
+
+def linspace(start: float, stop: float, num: int, endpoint: bool = True, *, device=None,
+             dtype=torch.float32) -> torch.Tensor:
+    """Evenly spaced values, rounded as the JAX package's ``jnp.linspace``
+    inside a jitted function (XLA turns the division by ``div`` into a
+    product with its reciprocal ``r``): ``start * (1 - i r) + i (stop r)``,
+    each operation in ``dtype``, so that both packages hold the same values."""
+    div = num - 1 if endpoint else num
+    # torch.full, not torch.tensor: no copy from the host.
+    start_t = torch.full((), start, dtype=dtype, device=device)
+    stop_t = torch.full((), stop, dtype=dtype, device=device)
+    if num == 1:
+        return start_t[None]
+    r = 1.0 / torch.full((), div, dtype=dtype, device=device)
+    i = torch.arange(div, dtype=dtype, device=device)
+    out = start_t * (1 - i * r) + i * (stop_t * r)
+    return torch.cat([out, stop_t[None]]) if endpoint else out
+
+
+def per_robot(t, batch: int):
+    """A set shared by a batch, ``(L, d)``, or one per robot, ``(B, L, d)``,
+    as ``(B, L, d)`` (a view, no copy)."""
+    return t.expand((batch,) + t.shape[-2:])
+
+
+def take_rows(x, idx):
+    """``x[b, idx[b]]`` for ``x (B, L, ...)`` and ``idx (B,)``."""
+    return x[torch.arange(x.shape[0], device=x.device), idx]
+
+
+def first_true(mask):
+    """Index of the first True on the last axis, 0 where there is none:
+    what ``jnp.argmax`` of a boolean array gives (the mask is cast to
+    integers first)."""
+    return torch.argmax(mask.to(torch.int8), dim=-1)

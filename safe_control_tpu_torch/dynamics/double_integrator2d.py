@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from safe_control_tpu_torch.dynamics.base import masked_apply, spec_vector
+from safe_control_tpu_torch.dynamics.base import angle_normalize, masked_apply, spec_vector
 
 N_STATES = 4
 N_CONTROLS = 2
@@ -59,6 +59,21 @@ def nominal_input(x, goal, spec, d_min=0.05):
 
 def stop(x, spec):
     return spec.nominal_k_a * (0.0 - x[..., 2:4])
+
+
+def has_stopped(x, spec, tol=0.05):
+    return _norm2(x[..., 2:4]) < tol
+
+
+def rotate_to(x, theta_des, spec, k_omega=2.0):
+    # No positional input while rotating in place (the yaw is a side channel).
+    return torch.zeros(x.shape[:-1] + (N_CONTROLS,), dtype=x.dtype, device=x.device)
+
+
+def yaw_rate_to(yaw, theta_des, spec, k_omega=2.0):
+    """Rotation-in-place yaw-rate command on the yaw side channel."""
+    err = angle_normalize(theta_des - yaw)
+    return torch.clamp(k_omega * err, -spec.w_max, spec.w_max)
 
 
 def u_lb(spec, *, device=None, dtype=torch.float32):

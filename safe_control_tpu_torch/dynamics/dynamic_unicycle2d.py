@@ -59,6 +59,21 @@ def nominal_input(x, goal, spec, d_min=0.05):
     return torch.stack([accel, omega], dim=-1)
 
 
+def stop(x, spec):
+    return torch.stack(
+        [spec.nominal_k_a * (0.0 - x[..., 3]), torch.zeros_like(x[..., 3])], dim=-1
+    )
+
+
+def has_stopped(x, spec, tol=0.05):
+    return torch.abs(x[..., 3]) < tol
+
+
+def rotate_to(x, theta_des, spec, k_omega=2.0):
+    err = angle_normalize(theta_des - x[..., 2])
+    return torch.stack([torch.zeros_like(err), k_omega * err], dim=-1)
+
+
 def u_lb(spec, *, device=None, dtype=torch.float32):
     return spec_vector([-spec.a_max, -spec.w_max], device=device, dtype=dtype)
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from safe_control_tpu_torch.dynamics.base import spec_vector
+from safe_control_tpu_torch.dynamics.base import angle_normalize, spec_vector
 
 N_STATES = 2
 N_CONTROLS = 2
@@ -41,6 +41,22 @@ def nominal_input(x, goal, spec, d_min=0.05, k_v=1.0):
 
 def stop(x, spec):
     return torch.zeros_like(x)
+
+
+def has_stopped(x, spec, tol=0.05):
+    # A single integrator can always stop at once.
+    return torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
+
+
+def rotate_to(x, theta_des, spec, k_omega=2.0):
+    # The yaw is a side channel: no positional input while rotating.
+    return torch.zeros_like(x)
+
+
+def yaw_rate_to(yaw, theta_des, spec, k_omega=2.0):
+    """Rotation-in-place yaw-rate command on the yaw side channel."""
+    err = angle_normalize(theta_des - yaw)
+    return torch.clamp(k_omega * err, -spec.w_max, spec.w_max)
 
 
 def u_lb(spec, *, device=None, dtype=torch.float32):

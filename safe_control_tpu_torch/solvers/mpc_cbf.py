@@ -115,7 +115,8 @@ def _check_supported(cfg: MPCConfig) -> None:
     ):
         if on:
             raise NotImplementedError(
-                f"MPCConfig option {name} is not yet ported to safe_control_tpu_torch"
+                f"MPCConfig option {name} is not yet ported to safe_control_tpu_torch "
+                "(ROADMAP A.5)"
             )
 
 

@@ -232,3 +232,40 @@ def test_quad3d_vtol2d_bounds_and_structure(name):
     np.testing.assert_array_equal(tm.barrier_pos(x).numpy(), x[:, :2].numpy())
     assert (tm.N_STATES, tm.N_CONTROLS, tm.REL_DEG) == (jm.N_STATES, jm.N_CONTROLS, jm.REL_DEG)
     assert get_model(name) is tm
+
+
+@pytest.mark.parametrize("name,n", [(DOUBLE_INTEGRATOR_2D, 4), (SINGLE_INTEGRATOR_2D, 2),
+                                    (DYNAMIC_UNICYCLE_2D, 4)])
+def test_tracking_helpers_match_jax_f64(name, n):
+    """The tracking loop's model helpers: ``stop``, ``has_stopped`` and
+    ``rotate_to`` (and ``yaw_rate_to`` for the integrators' yaw side
+    channel), with a few states at rest so that ``has_stopped`` is mixed."""
+    x, _, _ = _integrator_inputs(n, seed=3)
+    x[:8, 2:] = 0.01
+    rng = np.random.default_rng(4)
+    theta = rng.uniform(-4, 4, x.shape[0])
+    yaw = rng.uniform(-4, 4, x.shape[0])
+    js, ts = make_spec(name, w_max=0.7), tspec.make_spec(name, w_max=0.7)
+    jm, tm = jget_model(name), get_model(name)
+    with jax.enable_x64(True):
+        jx, jth, jyaw = (jnp.asarray(a, jnp.float64) for a in (x, theta, yaw))
+        want = {
+            "stop": jax.vmap(lambda s: jm.stop(s, js))(jx),
+            "has_stopped": jax.vmap(lambda s: jm.has_stopped(s, js))(jx),
+            "rotate_to": jax.vmap(lambda s, t: jm.rotate_to(s, t, js))(jx, jth),
+        }
+        if name != DYNAMIC_UNICYCLE_2D:
+            want["yaw_rate_to"] = jax.vmap(lambda y, t: jm.yaw_rate_to(y, t, js))(jyaw, jth)
+        want = {k: np.asarray(v) for k, v in want.items()}
+    tx, tth, tyaw = (torch.as_tensor(a, dtype=torch.float64) for a in (x, theta, yaw))
+    got = {"stop": tm.stop(tx, ts), "has_stopped": tm.has_stopped(tx, ts),
+           "rotate_to": tm.rotate_to(tx, tth, ts)}
+    if name != DYNAMIC_UNICYCLE_2D:
+        got["yaw_rate_to"] = tm.yaw_rate_to(tyaw, tth, ts)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=0, atol=1e-12, err_msg=k)
+    stopped = got["has_stopped"].numpy()
+    assert stopped.all() if name == SINGLE_INTEGRATOR_2D else (stopped.any() and not stopped.all())
+    if "yaw_rate_to" in got:  # saturates at w_max for large errors
+        assert np.abs(got["yaw_rate_to"].numpy()).max() == pytest.approx(0.7)
