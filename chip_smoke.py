@@ -91,6 +91,42 @@ Run from the root of a checkout:  python3 chip_smoke.py
     RET_INFEASIBLE, robot-steps/s, ms a step and the kernel's share of the
     step (CUDA events around the launch, over the replayed steps).
 
+16. B3's six later instantiations (Unicycle2D, KinematicBicycle2D and its
+    C3BF and DPCBF variants, Quad2D, Manipulator2D): each one's registers,
+    stack, spills, shared bytes and blocks an SM; each against its plain
+    version at N=10, B=256 (``entry.build_fused_step``'s starts; C3BF and
+    DPCBF among moving obstacles, the robots moving), cold start and the
+    warm start one step later, in the kernel envelope, bits printed; at
+    B=4096 its launch time, operation count (``b3_flops`` with the model's
+    step and barrier operations and relative degree), bound and share.
+    Manipulator2D has no MPC cost weights in the JAX package or the port (its
+    MPC raises KeyError); unit weights stand in for this check.  Then five
+    warm-started DPCBF ``solve_dispatch`` steps at B=4096: one launch a step,
+    no fallback logged.
+17. The dynamic-obstacle scenario of ``tests/test_dynamic_env_e2e.py`` (8
+    moving obstacles, 2 waypoints, dt 0.05, a_max 5, radius 0.3):
+    ``tracking.run_dynamic`` with the CBF-QP for 800 steps, one
+    KinematicBicycle2D_DPCBF and one _C3BF robot (RET_DONE, never
+    RET_INFEASIBLE, one B2 launch a step), then a DPCBF fleet at B=4096
+    (robot 0 at the start, the others within +-0.1 m, ``default_rng(0)``):
+    one launch a step, robot 0 meets the predicates, the first 64 robots'
+    first 20 controls within QP_U_TOL of ``tracking.step`` replayed with
+    B2's plain version; the shares of robots RET_DONE / RET_INFEASIBLE,
+    robot-steps/s, ms a step and B2's share of it.
+18. The Manipulator2D CBF-QP at B=4096 through ``cbf_qp.solve_batch`` (5
+    obstacle slots x 23 link circles + 3 input rows: n=3, m=118, 32 lanes a
+    problem) against its plain version (max |dx| < 2e-3, equal feasible
+    flags, bits printed); the launch's time, bound and share.
+19. The MPC variants on the general solve (no kernel takes them): optimal
+    decay on the tight scene of ``tests/test_optimal_decay.py`` at B=64
+    (every problem feasible, viol < 1e-3, max omega > 1.05, u[0] = -1); the
+    KKT polish (``polish_iters=3`` at the parity tests' accuracy budget) in
+    float64 on the c2 anchors of ``tests/data`` (within 1e-3 of the
+    goldens); ``newton_f64`` on ``entry.build_step``'s inputs at B=256
+    (finite, 95% within 5e-3 of the float32 solve); ``MPCConfig.rti``
+    VTOL2D N=30 (M=120) for one robot, 5 warm-started steps, ms a step
+    beside the 50 ms period.
+
 Every time is printed beside the card's name and power limit, and each
 phase's wall seconds from phase 13 on.  Prints one JSON line of per-kernel
 numbers (with each kernel's bound and launches a step), then, as the last
@@ -126,6 +162,16 @@ FLEET_DI_STEPS = 2000  # the DI scenario's 100 s at dt 0.05
 FLEET_DU_STEPS = 50
 REPLAY = {"cbf_qp": 20, "mpc_cbf": 5}  # fleet steps replayed with the plain version
 PASS_TOL = 0.35  # every waypoint passed this close (tests/test_tracking_e2e.py)
+# The dynamic-obstacle scenario of tests/test_dynamic_env_e2e.py: 8 obstacles
+# moving at (-0.5, +-0.5), bouncing in y within [0, 15].
+DYN_BASE = [[8.0, 9.0, 0.5], [10.0, 4.0, 0.5], [12.0, 5.0, 0.5], [14.0, 9.0, 0.5],
+            [16.0, 6.0, 0.5], [18.0, 14.0, 0.5], [20.0, 4.0, 0.5], [22.0, 12.0, 0.5]]
+DYN_VELS = [[-0.5, 0.5] if i % 2 == 0 else [-0.5, -0.5] for i in range(8)]
+DYN_WAYPOINTS = [[1.0, 7.5], [20.0, 7.5]]
+DYN_STEPS = 800
+# Manipulator2D's CBF-QP: three circles its links reach, two dummy slots.
+ARM_OBSTACLES = [[1.6, 1.2, 0.3, 0, 0, 0, 0], [0.4, 1.9, 0.3, 0, 0, 0, 0],
+                 [-1.0, 1.5, 0.4, 0, 0, 0, 0]]
 # The scenario of tests/test_tracking_e2e.py (examples/test_tracking.py).
 WAYPOINTS = [[2, 2, 1.5707963267948966], [2, 12, 0], [12, 12, 0], [12, 2, 0]]
 KNOWN_OBS = [
@@ -230,6 +276,16 @@ HBM_RATE = 3.35e12
 # allocation 28, four derivatives 8, three stage states 72, the update 84,
 # three angle wraps 15.
 QUAD3D_STEP_OPS = 207
+# (step, barrier value) operations of the six models that came later, from
+# csrc/mpc_fused_models.h the same way (an angle wrap 5): Unicycle2D's
+# Euler step 15; the bicycles' 25 (the clip free); Quad2D's 31;
+# Manipulator2D's 6 and its constant position 2 + a circle 6; C3BF's
+# collision cone 29, DPCBF's parabola 42 (atan2, sin, cos, three square
+# roots, one division and the rest).
+NEW_B3_OPS = {
+    "Unicycle2D": (15, 6), "KinematicBicycle2D": (25, 6), "KinematicBicycle2D_C3BF": (25, 29),
+    "KinematicBicycle2D_DPCBF": (25, 42), "Quad2D": (31, 6), "Manipulator2D": (6, 8),
+}
 
 
 def bound(flops, nbytes):
@@ -305,14 +361,16 @@ def b2_flops(B, n, m, iters, stages=8):
     return B * (iters * sweep + stages * stage + m * 2 * tri)
 
 
-def b3_flops(B, n, m, N, K, NC, step_ops, active_rows):
+def b3_flops(B, n, m, N, K, NC, step_ops, active_rows, h_ops=6, rel_deg=1):
     """Operations of B3's solve for a model of ``step_ops`` operations a
-    ``step``, from its code, with circle barriers and relative degree 1.  A
+    ``step`` and ``h_ops`` a barrier value (6: a circle), from its code.  A
     dual-number operation is counted as two (a value and a tangent: the
-    Quad3D step multiplies duals by constants only)."""
+    Quad3D step multiplies duals by constants only).  Relative degree 2
+    adds a step and K barrier values a stage, and 6 operations a CBF row."""
     M, NR, steps = N * m, N * (n + m), 24
     tri = M * (M + 1) // 2
-    rollout = K * 6 + N * (step_ops + 2 * n + 9 * K + 2 * (NC - N * K) // (2 * N)) + 2 * N * m
+    stage = rel_deg * (step_ops + K * h_ops) + 2 * n + (3 if rel_deg == 1 else 9) * K
+    rollout = K * h_ops + N * (stage + 2 * (NC - N * K) // (2 * N)) + 2 * N * m
     newton = (M * (2 * rollout + NC) + 2 * M * (NR + NC) + 2 * tri * NR + 2 * M + 3 * tri
               + sum(i * (i + 1) for i in range(M)) + tri + 2 * M * M + 2 * M * M
               + 6 * (rollout + 4 * NR + 7 * NC) + 12 * M)
@@ -396,6 +454,55 @@ def single_robot(dev, card, phase, robot_spec, pos_controller, x0, tf, counter):
     return len(rets), ms
 
 
+def replay(cfg, spec, st0, traj, args_at, qp):
+    """A fleet run's first steps again, one at a time, from ``st0``:
+    ``tracking.step(cfg, spec, state, *args_at(i))`` for step i.  Returns the
+    kernel's ms a step (CUDA events around B2's or B3's launch), whether the
+    states equal the run's ``traj``, and for the first N_GENERAL robots each
+    step's max |du| against the same step with the kernel's plain version
+    bound in its place."""
+    from safe_control_tpu_torch.sim import tracking
+    from safe_control_tpu_torch.solvers import mpc_fused as mf
+    from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+    counter = qpk if qp else mf
+    k, n_replay = N_GENERAL, REPLAY["cbf_qp" if qp else "mpc_cbf"]
+    timed_name = "_sweep_cuda" if qp else "solve_fused_batch"
+    launch = getattr(counter, timed_name)
+    events = []
+
+    def timed(*a, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = launch(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    states, st, same_x = [], st0, True
+    setattr(counter, timed_name, timed)
+    try:
+        for i in range(n_replay):
+            states.append(type(st)(*(torch.utils._pytree.tree_map(lambda t: t[:k], tuple(st)))))
+            st = tracking.step(cfg, spec, st, *args_at(i)).state
+            same_x = same_x and torch.equal(st.x, traj["x"][:, i])
+        torch.cuda.synchronize()
+    finally:
+        setattr(counter, timed_name, launch)
+    kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events) / len(events)
+
+    plain_name = "solve_qp_batch" if qp else "solve_fused_batch"
+    bound_fn = getattr(counter, plain_name)
+    setattr(counter, plain_name, getattr(counter, plain_name + "_reference"))
+    try:
+        dev_plain = [(tracking.step(cfg, spec, sti, *args_at(i)).u - traj["u"][:k, i]).abs().max()
+                     .item() for i, sti in enumerate(states)]
+        torch.cuda.synchronize()
+    finally:
+        setattr(counter, plain_name, bound_fn)
+    return kernel_ms, same_x, dev_plain
+
+
 def fleet(dev, card, pos_controller, n_steps):
     """Phase 15: ``tracking.run`` over a fleet of FLEET robots; gated and
     printed.  Returns ``(launches, ms a step, kernel ms a step)``."""
@@ -446,43 +553,8 @@ def fleet(dev, card, pos_controller, n_steps):
     launches = counter.LAUNCH_COUNT
     step_ms = wall / n_steps * 1e3
 
-    # The first steps again, one at a time: the states they start from, and
-    # the kernel's time in each (CUDA events around the launch).
-    k, n_replay = N_GENERAL, REPLAY[pos_controller]
-    timed_name = "_sweep_cuda" if qp else "solve_fused_batch"
-    launch = getattr(counter, timed_name)
-    events = []
-
-    def timed(*a, **kw):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = launch(*a, **kw)
-        e1.record()
-        events.append((e0, e1))
-        return out
-
-    states, st, same_x = [], st0, True
-    setattr(counter, timed_name, timed)
-    try:
-        for i in range(n_replay):
-            states.append(type(st)(*(torch.utils._pytree.tree_map(lambda t: t[:k], tuple(st)))))
-            st = tracking.step(cfg, spec, st, *args).state
-            same_x = same_x and torch.equal(st.x, traj["x"][:, i])
-        torch.cuda.synchronize()
-    finally:
-        setattr(counter, timed_name, launch)
-    kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events) / len(events)
-
-    # ... and the first k robots of each with the kernel's plain version bound in its place
-    plain_name = "solve_qp_batch" if qp else "solve_fused_batch"
-    bound_fn = getattr(counter, plain_name)
-    setattr(counter, plain_name, getattr(counter, plain_name + "_reference"))
-    try:
-        dev_plain = [(tracking.step(cfg, spec, sti, *args).u - traj["u"][:k, i]).abs().max().item()
-                     for i, sti in enumerate(states)]
-        torch.cuda.synchronize()
-    finally:
-        setattr(counter, plain_name, bound_fn)
+    k = N_GENERAL
+    kernel_ms, same_x, dev_plain = replay(cfg, spec, st0, traj, lambda i: args, qp)
 
     ret = final.ret
     done = (ret == tracking.RET_DONE).float().mean().item()
@@ -517,6 +589,374 @@ def fleet(dev, card, pos_controller, n_steps):
     if not same_x or max(dev_plain) >= tol:
         raise SystemExit(f"phase 15 failed: the {label} fleet disagrees with the plain version")
     return launches, step_ms, kernel_ms
+
+
+class UnitWeights:
+    """The JAX package, and so the port, has no MPC cost weights for
+    Manipulator2D (its MPC raises KeyError).  Within this context unit
+    weights stand in, so that the fused kernel's Manipulator2D
+    instantiation can be held to its plain version."""
+
+    def __enter__(self):
+        from safe_control_tpu_torch.solvers import mpc_cbf
+
+        self.weights = mpc_cbf._WEIGHTS
+        self.weights["Manipulator2D"] = ([1.0, 1.0, 1.0], [0.5, 0.5, 0.5])
+
+    def __exit__(self, *exc):
+        del self.weights["Manipulator2D"]
+
+
+def b3_pair(label, model, sp, args, cf, errs, active=None):
+    """B3 against its plain version on ``args``: gated in the kernel
+    envelope, printed, the largest difference appended to ``errs``; the
+    plain version's activation tests counted by ``active`` when given.
+    Returns the kernel's result."""
+    from safe_control_tpu_torch import entry
+    from safe_control_tpu_torch.solvers import mpc_fused as mf
+
+    kern = mf.solve_fused_batch(model, sp, *args, entry.DT, cf)
+    torch.cuda.synchronize()
+    if active is None:
+        plain = mf.solve_fused_batch_reference(model, sp, *args, entry.DT, cf)
+    else:
+        with active:
+            plain = mf.solve_fused_batch_reference(model, sp, *args, entry.DT, cf)
+    torch.cuda.synchronize()
+    du_ = (kern.U - plain.U).abs().max().item()
+    dxs = (kern.xs - plain.xs).abs().max().item()
+    dv = (kern.viol - plain.viol).abs().max().item()
+    same = torch.equal(kern.U, plain.U) and torch.equal(kern.xs, plain.xs) and \
+        torch.equal(kern.viol, plain.viol)
+    errs.append(max(du_, dxs, dv))
+    print(f"phase {label} fused kernel vs plain ({model} N={cf.horizon}, B={args[0].shape[0]}): "
+          f"max|du| {du_:.3e}, max|dxs| {dxs:.3e}, max|dviol| {dv:.3e}, bit-identical {same}, "
+          f"finite {bool(torch.isfinite(kern.U).all())}, "
+          f"{int((kern.viol > VIOL_TOL).sum())} with viol > {VIOL_TOL}")
+    if not (du_ < U_TOL and dxs < U_TOL and dv <= VIOL_TOL and bool(torch.isfinite(kern.U).all())):
+        raise SystemExit(f"phase {label} failed: fused kernel disagrees with its plain version")
+    return kern
+
+
+def new_b3_models(dev, card, b3_report):
+    """Phase 16: B3's six later instantiations.  Returns the JSON shapes."""
+    from safe_control_tpu_torch import entry
+    from safe_control_tpu_torch.core.spec import make_spec
+    from safe_control_tpu_torch.dynamics import get_model
+    from safe_control_tpu_torch.solvers import mpc_cbf
+    from safe_control_tpu_torch.solvers import mpc_fused as mf
+
+    t_phase = time.perf_counter()
+    for model in NEW_B3_OPS:
+        print(f"phase 16 build [{card}] {b3_report[model]}")
+    errs, shapes = [], []
+    cf = mpc_cbf.MPCConfig(horizon=10, num_obs=5)
+    with UnitWeights():
+        for model, (step_ops, h_ops) in NEW_B3_OPS.items():
+            sp = make_spec(model)
+            fstep, args = entry.build_fused_step(256, model_name=model, horizon=10, device=dev)
+            b3_pair("16 (cold)", model, sp, args, cf, errs)
+            x1, u1, U1 = fstep(*args)
+            b3_pair("16 (warm)", model, sp, (x1, args[1], args[2], u1, U1), cf, errs)
+            # at B=4096: the launch, its operations (active rows from the
+            # plain version's tests on the same inputs), bound and share
+            big = entry.build_fused_step(BATCH, model_name=model, horizon=10, device=dev)[1]
+            nc = mpc_cbf._num_constraints(get_model(model), cf)
+            active = ActiveRows(lambda t, nc=nc: t.dim() == 2 and t.shape[-1] == nc)
+            with active:
+                mf.solve_fused_batch_reference(model, sp, *big, entry.DT, cf)
+            run = lambda: mf.solve_fused_batch(model, sp, *big, entry.DT, cf)
+            run()
+            ms = sync_time(run, 3)
+            mdl = get_model(model)
+            n, m, M = mdl.N_STATES, mdl.N_CONTROLS, 10 * mdl.N_CONTROLS
+            ops = b3_flops(BATCH, n, m, 10, 5, nc, step_ops, active.total(), h_ops, mdl.REL_DEG)
+            bnd, by = bound(ops, BATCH * (2 * n + 35 + m + 2 * M + 11 * n + 1) * 4)
+            print(f"phase 16 [{card}] {model} N=10 B={BATCH}: fused kernel {ms:.4f} ms a launch, "
+                  f"{ops:.4e} operations ({active.total()} active constraint rows), bound "
+                  f"{bnd:.4f} ms by {by}, {100 * bnd / ms:.2f}% of it reached")
+            shapes.append({"shape": f"{model} N=10 B={BATCH}", "ms": ms, "bound_ms": bnd,
+                           "bound_by": by, "max_abs_err": max(errs[-2:])})
+    # the DPCBF fused path: five warm-started solve_dispatch steps at B=4096
+    model = "KinematicBicycle2D_DPCBF"
+    fstep, args = entry.build_fused_step(BATCH, model_name=model, horizon=10, device=dev)
+    log = LogRecords()
+    logger = logging.getLogger("safe_control_tpu_torch.solvers")
+    logger.addHandler(log)
+    seen = len(mpc_cbf._FUSED_FALLBACK_SEEN)
+    mf.LAUNCH_COUNT = 0
+    x, up, U = args[0], args[3], args[4]
+    t0 = time.perf_counter()
+    try:
+        for _ in range(STEPS):
+            x, up, U = fstep(x, args[1], args[2], up, U)
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(log)
+    step_ms = (time.perf_counter() - t0) / STEPS * 1e3
+    launches = mf.LAUNCH_COUNT
+    fallbacks = len(log.records) + len(mpc_cbf._FUSED_FALLBACK_SEEN) - seen
+    finite = all(bool(torch.isfinite(t).all()) for t in (x, up, U))
+    print(f"phase 16 [{card}] {model} fused path: {STEPS} warm-started solve_dispatch steps at "
+          f"B={BATCH}, fused kernel launches {launches}, fallbacks logged {fallbacks}, finite "
+          f"{finite}, {step_ms:.3f} ms a step (host clock); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if launches != STEPS or fallbacks or not finite:
+        raise SystemExit("phase 16 failed: the DPCBF fused path did not run through the kernel")
+    return shapes, max(errs), launches
+
+
+def dynamic_env(dev, card):
+    """Phase 17: the dynamic-obstacle scenario (tests/test_dynamic_env_e2e.py)
+    through the CBF-QP and B2: one robot of each barrier, then a DPCBF fleet.
+    Returns (fleet launches, ms a step, B2 ms a step, max |du| to the plain
+    version)."""
+    import numpy as np
+
+    from safe_control_tpu_torch.core.spec import make_spec
+    from safe_control_tpu_torch.core.types import pad_obstacles
+    from safe_control_tpu_torch.sim import tracking
+    from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+    t_phase = time.perf_counter()
+    moving = pad_obstacles(np.hstack([DYN_BASE, DYN_VELS, np.zeros((8, 2))]), 8, device=dev)
+    wps = torch.tensor(DYN_WAYPOINTS, dtype=torch.float32, device=dev)
+    y_range = (0.0, 15.0)
+    for model in ("KinematicBicycle2D_DPCBF", "KinematicBicycle2D_C3BF"):
+        spec = make_spec(model, a_max=5.0, radius=0.3)
+        cfg = tracking.TrackerConfig(model_name=model, pos_controller="cbf_qp", dt=0.05,
+                                     num_obs=8)
+        st = tracking.init_state(cfg, spec, torch.tensor([[1.0, 7.5, 0.0, 1.0]], device=dev),
+                                 0.0, first_goal=DYN_WAYPOINTS[0])
+        qpk.LAUNCH_COUNT = 0
+        t0 = time.perf_counter()
+        final, _, traj = tracking.run_dynamic(cfg, spec, st, wps, 2, moving, DYN_STEPS,
+                                              y_range=y_range)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / DYN_STEPS * 1e3
+        rets = traj["ret"][0].cpu().numpy()
+        done = np.flatnonzero(rets == tracking.RET_DONE)
+        ok = (int(final.ret[0]) == tracking.RET_DONE
+              and not (rets == tracking.RET_INFEASIBLE).any()
+              and qpk.LAUNCH_COUNT == DYN_STEPS)
+        print(f"phase 17 [{card}] single robot, {model} cbf_qp among 8 moving obstacles, "
+              f"tracking.run_dynamic of {DYN_STEPS} steps: QP kernel launches {qpk.LAUNCH_COUNT}, "
+              f"last code {int(final.ret[0])}, {int((rets == tracking.RET_INFEASIBLE).sum())} "
+              f"infeasible, RET_DONE first at step {done[0] if len(done) else None}; "
+              f"{ms:.3f} ms a step (host clock) against the 50 ms period")
+        if not ok:
+            raise SystemExit(f"phase 17 failed: the {model} dynamic-obstacle scenario")
+
+    # the DPCBF fleet: robot 0 at the start, the others within +-0.1 m
+    model = "KinematicBicycle2D_DPCBF"
+    spec = make_spec(model, a_max=5.0, radius=0.3)
+    cfg = tracking.TrackerConfig(model_name=model, pos_controller="cbf_qp", dt=0.05, num_obs=8)
+    rng = np.random.default_rng(0)
+    x0 = np.tile([1.0, 7.5, 0.0, 1.0], (FLEET, 1))
+    x0[1:, :2] += rng.uniform(-0.1, 0.1, (FLEET - 1, 2))
+    st0 = tracking.init_state(cfg, spec, torch.as_tensor(x0, dtype=torch.float32, device=dev),
+                              0.0, first_goal=DYN_WAYPOINTS[0])
+    tracking.step(cfg, spec, st0, wps, 2, moving)  # warm-up
+    torch.cuda.synchronize()
+    qpk.LAUNCH_COUNT = 0
+    t0 = time.perf_counter()
+    final, _, traj = tracking.run_dynamic(cfg, spec, st0, wps, 2, moving, DYN_STEPS,
+                                          y_range=y_range)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = qpk.LAUNCH_COUNT
+    # the first steps again: each starts from the obstacles the run saw
+    obs_seq = [moving]
+    for _ in range(REPLAY["cbf_qp"]):
+        obs_seq.append(tracking.step_dynamic_obstacles(obs_seq[-1], cfg.dt, None, y_range))
+    k = N_GENERAL
+    kernel_ms, same_x, dev_plain = replay(cfg, spec, st0, traj,
+                                          lambda i: (wps, 2, obs_seq[i]), True)
+    rets0 = traj["ret"][0].cpu().numpy()
+    robot0_ok = bool(rets0[-1] == tracking.RET_DONE
+                     and not (rets0 == tracking.RET_INFEASIBLE).any())
+    done = (final.ret == tracking.RET_DONE).float().mean().item()
+    infeasible = (final.ret == tracking.RET_INFEASIBLE).float().mean().item()
+    step_ms = wall / DYN_STEPS * 1e3
+    qn, qm = 2, cfg.num_obs + 2  # B2 at this path's shape
+    b2_bound, b2_by = bound(b2_flops(FLEET, qn, qm, cfg.qp_iters),
+                            FLEET * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+    print(f"phase 17 [{card}] fleet, {model} cbf_qp among 8 moving obstacles: "
+          f"tracking.run_dynamic of {DYN_STEPS} steps at B={FLEET}, QP kernel launches "
+          f"{launches}; {FLEET * DYN_STEPS / wall:.1f} robot-steps/s, {step_ms:.3f} ms a step, "
+          f"B2 {kernel_ms:.4f} ms a step (n={qn}, m={qm}: bound {b2_bound:.4f} ms by {b2_by}, "
+          f"{100 * b2_bound / kernel_ms:.2f}% of it reached; {100 * kernel_ms / step_ms:.1f}% "
+          f"of the step); at the "
+          f"end {100 * done:.2f}% of the robots RET_DONE and {100 * infeasible:.2f}% "
+          f"RET_INFEASIBLE; robot 0 last code {rets0[-1]}; replayed states equal the run's "
+          f"{same_x}; per-step max|du| of {k} robots against the plain version: "
+          + ", ".join(f"{d:.3e}" for d in dev_plain)
+          + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    if launches != DYN_STEPS or not robot0_ok:
+        raise SystemExit("phase 17 failed: the DPCBF fleet did not run the scenario cleanly")
+    if not same_x or max(dev_plain) >= QP_U_TOL:
+        raise SystemExit("phase 17 failed: the DPCBF fleet disagrees with the plain version")
+    return launches, step_ms, kernel_ms, max(dev_plain)
+
+
+def manipulator_cbf_qp(dev, card):
+    """Phase 18: the Manipulator2D CBF-QP (n=3, m=118) through B2 at B=4096.
+    Returns the JSON shape."""
+    import numpy as np
+
+    from safe_control_tpu_torch import entry
+    from safe_control_tpu_torch.core.spec import make_spec
+    from safe_control_tpu_torch.core.types import pad_obstacles
+    from safe_control_tpu_torch.dynamics import get_model
+    from safe_control_tpu_torch.solvers import cbf_qp, qp
+    from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+    name = "Manipulator2D"
+    spec, model = make_spec(name), get_model(name)
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(0.2, 1.2, (BATCH, 3)), dtype=torch.float32, device=dev)
+    u_ref = torch.as_tensor(rng.uniform(-2.0, 2.0, (BATCH, 3)), dtype=torch.float32, device=dev)
+    obs = pad_obstacles(ARM_OBSTACLES, 5, device=dev)[None].repeat(BATCH, 1, 1)
+    qpk.LAUNCH_COUNT = 0
+    kern = cbf_qp.solve_batch(name, spec, x, u_ref, obs, entry.DT, backend="pallas")
+    torch.cuda.synchronize()
+    launches = qpk.LAUNCH_COUNT
+    data = cbf_qp._assemble(model, name, spec, x, u_ref, obs, entry.DT, "cbf")[:5]
+    plain = qpk.solve_qp_batch_reference(*data)
+    torch.cuda.synchronize()
+    n, m = data[0].shape[-1], data[2].shape[-2]
+    dx = (kern.u - plain.x).abs().max().item()
+    feas_same = torch.equal(kern.feasible, plain.prim_res < 1e-3)
+    same = torch.equal(kern.u, plain.x)
+    scaled = qp.equilibrate(*data)
+    run = lambda: qpk._sweep_cuda(*scaled[:5], 1600, 1.0, 1e-6, 1.6)
+    run()
+    ms = sync_time(run, 5)
+    ops = b2_flops(BATCH, n, m, 1600)
+    bnd, by = bound(ops, BATCH * (n * n + 2 * n + m * n + 4 * m) * 4)
+    G, R = qpk.launch_shape(m)
+    print(f"phase 18 [{card}] Manipulator2D CBF-QP through cbf_qp.solve_batch at B={BATCH} "
+          f"(n={n}, m={m}: {G} lanes a problem, {R} register rows a lane): QP kernel launches "
+          f"{launches}, vs plain max|dx| {dx:.3e}, feasible flags equal {feas_same} "
+          f"({int(kern.feasible.sum())} feasible), bit-identical {same}; the launch {ms:.4f} ms, "
+          f"{ops:.4e} operations (1600 iterations), bound {bnd:.4f} ms by {by}, "
+          f"{100 * bnd / ms:.2f}% of it reached")
+    if not (launches == 1 and dx < QP_WIDE_TOL and feas_same):
+        raise SystemExit("phase 18 failed: the Manipulator2D CBF-QP disagrees with the plain version")
+    return {"shape": f"Manipulator2D CBF-QP n={n} m={m} B={BATCH}", "ms": ms, "bound_ms": bnd,
+            "bound_by": by, "max_abs_err": dx}
+
+
+def mpc_variants(dev, card):
+    """Phase 19: optimal decay, the KKT polish, newton_f64 and MPCConfig.rti
+    on the card (the general solve: no kernel takes them)."""
+    import os
+
+    import numpy as np
+
+    from safe_control_tpu_torch import entry
+    from safe_control_tpu_torch.core.spec import make_spec
+    from safe_control_tpu_torch.core.types import pad_obstacles
+    from safe_control_tpu_torch.solvers import mpc_cbf
+
+    t_phase = time.perf_counter()
+    du_name = "DynamicUnicycle2D"
+    du_spec = make_spec(du_name, a_max=1.0, w_max=0.5)
+    # (a) the optimal-decay tight scene (tests/test_optimal_decay.py), B=64
+    b = 64
+    ins = (torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=dev).repeat(b, 1),
+           torch.tensor([[4.0, 0.0, 0.0, 0.0]], device=dev).repeat(b, 1),
+           pad_obstacles([[1.2, 0.0, 0.5, 0, 0, 0, 0]], 5, device=dev)[None].repeat(b, 1, 1),
+           torch.zeros((b, 2), device=dev))
+    plain_cfg = mpc_cbf.MPCConfig(horizon=8, num_obs=5)
+    od_cfg = plain_cfg._replace(optimal_decay=True)
+    r_plain = mpc_cbf.solve(du_name, du_spec, *ins,
+                            mpc_cbf.init_state(du_name, plain_cfg, b, device=dev), entry.DT,
+                            plain_cfg)
+    t0 = time.perf_counter()
+    r_od = mpc_cbf.solve(du_name, du_spec, *ins, mpc_cbf.init_state(du_name, od_cfg, b, device=dev),
+                         entry.DT, od_cfg)
+    torch.cuda.synchronize()
+    od_ms = (time.perf_counter() - t0) * 1e3
+    om = r_od.state.U[:, :, 2:].amax((1, 2))
+    od_ok = bool(r_od.feasible.all() and (r_od.viol < 1e-3).all() and (om > 1.05).all()
+                 and (r_od.u[:, 0] == -1.0).all() and (r_plain.viol > 0.1).all())
+    print(f"phase 19a [{card}] optimal decay, the tight scene at B={b}: plain MPC viol "
+          f"{r_plain.viol.min().item():.3f}..{r_plain.viol.max().item():.3f}; optimal-decay "
+          f"feasible {int(r_od.feasible.sum())}/{b}, max viol {r_od.viol.max().item():.2e}, "
+          f"least max omega {om.min().item():.3f}, u[0] {r_od.u[:, 0].unique().tolist()}; "
+          f"{od_ms:.1f} ms a solve (host clock)")
+    if not od_ok:
+        raise SystemExit("phase 19a failed: the optimal-decay MPC missed the tight scene")
+
+    # (b) the KKT polish at the accuracy budget, float64, on the c2 anchors
+    data = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                                "parity_goldens.npz"))
+    acc = mpc_cbf.MPCConfig(horizon=8, num_obs=5, outer_iters=30, newton_iters=8,
+                            polish_iters=3)
+    f64 = dict(dtype=torch.float64, device=dev)
+    xs = torch.as_tensor(data["c2_x"], **f64)
+    nb = xs.shape[0]
+    goal = torch.as_tensor(data["c2_goal"], **f64).expand(nb, -1)
+    obs = pad_obstacles(data["c2_obs"], 5, **f64)[None].expand(nb, -1, -1)
+    ups = torch.as_tensor(data["c2_uprev"], **f64)
+    t0 = time.perf_counter()
+    r_acc = mpc_cbf.solve(du_name, du_spec, xs, goal, obs, ups,
+                          mpc_cbf.init_state(du_name, acc, nb, **f64), entry.DT, acc)
+    torch.cuda.synchronize()
+    pol_s = time.perf_counter() - t0
+    dev_gold = np.abs(r_acc.u.cpu().numpy() - data["c2_gold"]).max()
+    print(f"phase 19b [{card}] KKT polish (polish_iters=3, 30x8 budget, float64) on the {nb} c2 "
+          f"anchors: max|u - golden| {dev_gold:.3e} (BASELINE criterion < 1e-3); "
+          f"{pol_s:.2f} s for the batch")
+    if not dev_gold < 1e-3:
+        raise SystemExit("phase 19b failed: the polished solve misses the c2 goldens")
+
+    # (c) newton_f64 on the main path's inputs at B=256, against the float32 solve
+    _, args = entry.build_step(256, device=dev)
+    base = mpc_cbf.MPCConfig(horizon=8, num_obs=5)
+    st = mpc_cbf.init_state(du_name, base, 256, device=dev)._replace(U=args[4])
+    r32 = mpc_cbf.solve(du_name, du_spec, *args[:4], st, entry.DT, base)
+    t0 = time.perf_counter()
+    r64 = mpc_cbf.solve(du_name, du_spec, *args[:4], st, entry.DT, base._replace(newton_f64=True))
+    torch.cuda.synchronize()
+    nf_ms = (time.perf_counter() - t0) * 1e3
+    per_du = (r64.state.U - r32.state.U).abs().amax((1, 2))
+    within = int((per_du < U_TOL).sum())
+    finite = bool(torch.isfinite(r64.state.U).all())
+    print(f"phase 19c [{card}] newton_f64 on entry.build_step's inputs at B=256 against the "
+          f"float32 solve: finite {finite}, {within}/256 within {U_TOL}, median|du| "
+          f"{per_du.median().item():.3e}, max|du| {per_du.max().item():.3e}; {nf_ms:.1f} ms a "
+          f"solve (host clock)")
+    if not (finite and within >= 0.95 * 256):
+        raise SystemExit("phase 19c failed: newton_f64 left the float32 envelope")
+
+    # (d) MPCConfig.rti, VTOL2D N=30 (M=120), one robot: the general solve
+    vt = "VTOL2D"
+    rti = mpc_cbf.MPCConfig.rti(horizon=30, num_obs=5)
+    x = torch.tensor([[8.0, 38.0, 0.05, 12.0, 0.5, 0.0]], device=dev)
+    gl = torch.tensor([[80.0, 40.0, 0, 0, 0, 0]], device=dev)
+    ob = pad_obstacles([[40.0, 35.0, 3.0, 0, 0, 0, 0]], 5, device=dev)[None]
+    st = mpc_cbf.init_state(vt, rti, 1, device=dev)
+    up = torch.zeros((1, 4), device=dev)
+    from safe_control_tpu_torch.dynamics import get_model
+
+    vmodel, vspec = get_model(vt), make_spec(vt)
+    times = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        res = mpc_cbf.solve_dispatch(vt, vspec, x, gl, ob, up, st, entry.DT, rti)
+        x = vmodel.step(x, res.u, vspec, entry.DT)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        up, st = res.u, res.state
+    rti_ok = bool(torch.isfinite(x).all())
+    print(f"phase 19d [{card}] MPCConfig.rti (2x2), VTOL2D N=30 (M=120, the general solve), "
+          f"one robot, {STEPS} warm-started steps: " + ", ".join(f"{t:.1f}" for t in times)
+          + f" ms a step (host clock) against the 50 ms period, finite {rti_ok}; host-bound: "
+          f"thousands of small launches a solve; phase {time.perf_counter() - t_phase:.1f} s")
+    if not rti_ok:
+        raise SystemExit("phase 19d failed: the RTI solve diverged")
 
 
 def main() -> None:
@@ -830,17 +1270,20 @@ def main() -> None:
     shapes = {QUAD_3D: (q3_spec, q3_cfg), VTOL_2D: (vt_spec, vt_cfg), DYNAMIC_UNICYCLE_2D:
               (spec, du_cfg), SINGLE_INTEGRATOR_2D: (make_spec(SINGLE_INTEGRATOR_2D), int_cfg),
               DOUBLE_INTEGRATOR_2D: (make_spec(DOUBLE_INTEGRATOR_2D), int_cfg)}
-    report = []
-    for model, regs, frame in fused_ptxas(info["ptxas"]):
-        sp, cf = shapes[model]
-        smem = mf.shared_memory_bytes(model, sp, entry.DT, cf)
-        per_sm = mf.blocks_per_sm(model, sp, entry.DT, cf)
-        report.append(f"{model} N={cf.horizon}: {regs}, {frame}, {smem} bytes dynamic shared, "
-                      f"{per_sm} blocks an SM")
+    shapes.update({model: (make_spec(model), int_cfg) for model in NEW_B3_OPS})
+    b3_report = {}
+    with UnitWeights():  # to size Manipulator2D's parameter block
+        for model, regs, frame in fused_ptxas(info["ptxas"]):
+            sp, cf = shapes[model]
+            smem = mf.shared_memory_bytes(model, sp, entry.DT, cf)
+            per_sm = mf.blocks_per_sm(model, sp, entry.DT, cf)
+            b3_report[model] = (f"{model} N={cf.horizon}: {regs}, {frame}, {smem} bytes dynamic "
+                                f"shared, {per_sm} blocks an SM")
     threads = _build.load_mpc_fused_kernel().mpc_fused_threads()
     print(f"phase 9 build: mpc_fused_kernel {info['seconds']:.1f} s (cached={info['cached']}, "
-          f"built beside the other two), {threads}-thread blocks; " + " | ".join(report))
-    if len(report) != len(mf.MODEL_IDS):
+          f"built beside the other two), {threads}-thread blocks; "
+          + " | ".join(v for k, v in b3_report.items() if k not in NEW_B3_OPS))
+    if set(b3_report) != set(mf.MODEL_IDS):
         raise SystemExit("phase 9 failed: not every model has a fused kernel instantiation")
 
     # ---- phase 10: fused kernel vs its plain version -------------------------------
@@ -849,38 +1292,16 @@ def main() -> None:
     q3_nc = mpc_cbf._num_constraints(get_model(QUAD_3D), q3_cfg)
     b3_active = ActiveRows(lambda t: t.dim() == 2 and t.shape[-1] == q3_nc)
 
-    def fused_pair(label, model, sp, args, cf, count=False):
-        kern = mf.solve_fused_batch(model, sp, *args, entry.DT, cf)
-        torch.cuda.synchronize()
-        if count:
-            with b3_active:
-                plain = mf.solve_fused_batch_reference(model, sp, *args, entry.DT, cf)
-        else:
-            plain = mf.solve_fused_batch_reference(model, sp, *args, entry.DT, cf)
-        torch.cuda.synchronize()
-        du_ = (kern.U - plain.U).abs().max().item()
-        dxs = (kern.xs - plain.xs).abs().max().item()
-        dv = (kern.viol - plain.viol).abs().max().item()
-        same = torch.equal(kern.U, plain.U) and torch.equal(kern.xs, plain.xs) and \
-            torch.equal(kern.viol, plain.viol)
-        fused_errs.append(max(du_, dxs, dv))
-        print(f"phase 10{label} fused kernel vs plain ({model} N={cf.horizon}, "
-              f"B={args[0].shape[0]}): max|du| {du_:.3e}, max|dxs| {dxs:.3e}, "
-              f"max|dviol| {dv:.3e}, bit-identical {same}, "
-              f"{int((kern.viol > VIOL_TOL).sum())} with viol > {VIOL_TOL}")
-        if not (du_ < U_TOL and dxs < U_TOL and dv <= VIOL_TOL):
-            raise SystemExit(f"phase 10{label} failed: fused kernel disagrees with its plain version")
-        return kern
-
     fstep_k, fargs = entry.build_fused_step(BATCH, device=dev)
-    fused_pair("a", QUAD_3D, q3_spec, fargs, q3_cfg, count=True)
+    b3_pair("10a", QUAD_3D, q3_spec, fargs, q3_cfg, fused_errs, active=b3_active)
     if b3_active.calls != 24:
         raise SystemExit(f"phase 10a failed: counted {b3_active.calls} activation tests, "
                          f"not one a Newton step")
     fx1, fu1, fU1 = fstep_k(*fargs)
-    fused_pair("a", QUAD_3D, q3_spec, (fx1, fargs[1], fargs[2], fu1, fU1), q3_cfg)
+    b3_pair("10a", QUAD_3D, q3_spec, (fx1, fargs[1], fargs[2], fu1, fU1), q3_cfg, fused_errs)
 
-    kern = fused_pair("b", DYNAMIC_UNICYCLE_2D, spec, (xs, goals, obs, u_prevs, Us), du_cfg)
+    kern = b3_pair("10b", DYNAMIC_UNICYCLE_2D, spec, (xs, goals, obs, u_prevs, Us), du_cfg,
+                   fused_errs)
     b1 = duk.solve_du_batch(xs, goals, obs, u_prevs, Us, params)
     du_model = get_model(DYNAMIC_UNICYCLE_2D)
     roll = [xs]
@@ -915,8 +1336,8 @@ def main() -> None:
         dtype=torch.float32, device=dev)
     v_goal = torch.tensor([80.0, 40.0, 0, 0, 0, 0], device=dev).repeat(vb, 1)
     v_obs = pad_obstacles([[40.0, 35.0, 3.0, 0, 0, 0, 0]], 5, device=dev)[None].repeat(vb, 1, 1)
-    fused_pair("c", VTOL_2D, vt_spec, (v_xs, v_goal, v_obs, torch.zeros((vb, 4), device=dev),
-                                       torch.zeros((vb, 16, 4), device=dev)), vt_cfg)
+    b3_pair("10c", VTOL_2D, vt_spec, (v_xs, v_goal, v_obs, torch.zeros((vb, 4), device=dev),
+                                      torch.zeros((vb, 16, 4), device=dev)), vt_cfg, fused_errs)
     ib = 64
     two_obs = pad_obstacles([[2.5, 0.8, 0.4, 0, 0, 0, 0], [4.0, -0.4, 0.8, 0.4, 4.0, 0.4, 1.0]], 5,
                             device=dev)[None].repeat(ib, 1, 1)
@@ -926,9 +1347,10 @@ def main() -> None:
             dtype=torch.float32, device=dev)
         i_goal = torch.zeros((ib, nx), device=dev)
         i_goal[:, :2] = torch.tensor([5.0, 1.0], device=dev)
-        fused_pair("d", model, make_spec(model), (i_xs, i_goal, two_obs,
-                                                  torch.zeros((ib, 2), device=dev),
-                                                  torch.zeros((ib, 10, 2), device=dev)), int_cfg)
+        b3_pair("10d", model, make_spec(model), (i_xs, i_goal, two_obs,
+                                                 torch.zeros((ib, 2), device=dev),
+                                                 torch.zeros((ib, 10, 2), device=dev)), int_cfg,
+                fused_errs)
     fused_max_err = max(fused_errs)
 
     # ---- phase 11: the fused path ------------------------------------------------
@@ -1028,6 +1450,12 @@ def main() -> None:
     qp_fleet = fleet(dev, card, "cbf_qp", FLEET_DI_STEPS)
     du_fleet = fleet(dev, card, "mpc_cbf", FLEET_DU_STEPS)
 
+    # ---- phases 16-19: the later models and MPC variants ------------------------
+    b3_shapes, b3_new_err, b3_new_launches = new_b3_models(dev, card, b3_report)
+    dyn = dynamic_env(dev, card)
+    arm_shape = manipulator_cbf_qp(dev, card)
+    mpc_variants(dev, card)
+
     print(json.dumps({"kernels": [{
         "name": "mpc_du_kernel",
         "route": "cuda",
@@ -1051,7 +1479,10 @@ def main() -> None:
         "tracking_launches": qp_fleet[0],
         "tracking_launches_per_step": qp_fleet[0] / FLEET_DI_STEPS,
         "tracking_ms_per_launch": qp_fleet[2],
-        "max_abs_err": max(qp_dx, qp_dy),
+        "dynamic_env_launches_per_step": dyn[0] / DYN_STEPS,
+        "dynamic_env_ms_per_launch": dyn[2],
+        "shapes": [arm_shape],
+        "max_abs_err": max(qp_dx, qp_dy, arm_shape["max_abs_err"], dyn[3]),
         "ms": qp_ms,
         "plain_ms": qp_plain_ms,
         "bound_ms": b2_bound,
@@ -1067,7 +1498,9 @@ def main() -> None:
         "tracking_launches": du_fleet[0],
         "tracking_launches_per_step": du_fleet[0] / FLEET_DU_STEPS,
         "tracking_ms_per_launch": du_fleet[2],
-        "max_abs_err": fused_max_err,
+        "dpcbf_launches_per_step": b3_new_launches / STEPS,
+        "shapes": b3_shapes,
+        "max_abs_err": max(fused_max_err, b3_new_err),
         "ms": f_ms,
         "plain_ms": f_plain_ms,
         "bound_ms": b3_bound,

@@ -12,9 +12,10 @@ obstacle slots, the counterpart of ``jax.value_and_grad``):
 Discrete time, for the MPC rollout: h_k, dh = h(x1) - h(x0),
 ddh = h(x2) - 2 h(x1) + h(x0) with x1 = step(x0, u), x2 = step(x1, u).
 
-The Unicycle2D heading-sigmoid barrier and the multi-row blocks of
-Manipulator2D wait for their models (ROADMAP A.5) and raise
-``NotImplementedError``.
+Model-specific shapes: Unicycle2D's continuous-time barrier subtracts the
+heading sigmoid and its discrete-time one is the plain circle; the C3BF and
+DPCBF bicycles bring their own ``ct_h`` / ``dt_h``; Manipulator2D's link
+circles give a block of rows per obstacle (``ct_cbf_rows_multi``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from safe_control_tpu_torch.barriers import geometry
 from safe_control_tpu_torch.core import spec as spec_mod
+from safe_control_tpu_torch.dynamics import unicycle2d
 
 
 def ct_h(model: ModuleType, model_name: str, x, obs, spec):
@@ -33,12 +35,13 @@ def ct_h(model: ModuleType, model_name: str, x, obs, spec):
     ``obs (..., 7)``."""
     if hasattr(model, "ct_h"):
         return model.ct_h(x, obs, spec)
+    p = model.barrier_pos(x)
+    h = geometry.h_point(p, obs, spec.radius, spec.cbf_beta)
     if model_name == spec_mod.UNICYCLE_2D:
-        raise NotImplementedError(
-            "ct_h: the Unicycle2D heading-sigmoid barrier is not yet ported "
-            "to safe_control_tpu_torch (it comes with the Unicycle2D model)"
-        )
-    return geometry.h_point(model.barrier_pos(x), obs, spec.radius, spec.cbf_beta)
+        s = ((p[..., 0] - obs[..., 0]) * torch.cos(x[..., 2])
+             + (p[..., 1] - obs[..., 1]) * torch.sin(x[..., 2]))
+        h = h - unicycle2d.sigma(s)
+    return h
 
 
 def tensor_fields(spec) -> dict:
@@ -110,11 +113,35 @@ def ct_cbf_row(model: ModuleType, model_name: str, x, obs, spec, dt, mode="cbf")
 
 
 def ct_cbf_rows_multi(model: ModuleType, x, obs, spec, dt, mode="cbf"):
-    """Multi-row r=1 CBF blocks (Manipulator2D's link circles)."""
-    raise NotImplementedError(
-        "ct_cbf_rows_multi: multi-row barriers (Manipulator2D) are not yet ported "
-        "to safe_control_tpu_torch (they come with the Manipulator2D model)"
-    )
+    """Multi-row r=1 CBF blocks ``(A (..., C, m), b (..., C))`` for one
+    obstacle, for models with ``ct_multi_h(x, obs, spec) -> (..., C)``
+    (Manipulator2D's link circles): row j is A_j = dh_j g and
+    b_j = dh_j f + alpha h_j, or h_j/dt + dh_j f in 'hard' mode.  The
+    Jacobian is ``torch.func.jacfwd`` under ``vmap``; ``x`` and ``obs``
+    broadcast as in :func:`ct_terms` (a spec of plain floats).
+    """
+    if tensor_fields(spec):
+        raise ValueError("ct_cbf_rows_multi takes a spec of plain floats, not per-robot tensors")
+    lead = torch.broadcast_shapes(x.shape[:-1], obs.shape[:-1])
+    n = x.shape[-1]
+    xf = x.expand(lead + (n,)).reshape(-1, n)
+    of = obs.expand(lead + (obs.shape[-1],)).reshape(-1, obs.shape[-1])
+
+    def one(xx, oo):  # (dh/dx (C, n), h (C,)) of one state and obstacle
+        return torch.func.jacfwd(lambda z: (model.ct_multi_h(z, oo, spec),) * 2,
+                                 has_aux=True)(xx)
+
+    Jh, h = torch.func.vmap(one)(xf, of)
+    C = h.shape[-1]
+    h = h.reshape(lead + (C,))
+    Jh = Jh.reshape(lead + (C, n))
+    f_x = model.f(x, spec)[..., None, :]
+    g_x = model.g(x, spec)[..., None, :, :]
+    a_rows = (Jh[..., :, :, None] * g_x).sum(-2)
+    b_f = (Jh * f_x).sum(-1)
+    if mode == "hard":
+        return a_rows, h / dt + b_f
+    return a_rows, b_f + spec.cbf_alpha * h
 
 
 def dt_h(model: ModuleType, model_name: str, x, obs, spec):

@@ -12,11 +12,15 @@
 //   atan2(y, x)  (-vy * tx + vx * ty) / (vy * vy + vx * vx)
 //   abs          t * sgn v                    pow(a, e)  t * (e * pow(v, e - 1))
 //   clamp        t where lo <= v <= hi, else 0 (ties pass the tangent)
+//   max_tie      t * w, w = 1 where v > c, 0.5 at v == c, else 0 (min_tie alike)
 //
-// JAX gives half the tangent to each side of a tie in max / min / clip; the
-// two differ only at exact ties, which no path reaches in practice.  The
-// float overloads let one model template serve both the value-only rollout
-// and the dual one.
+// torch.clamp passes the whole tangent at a tie, torch.maximum / minimum
+// against a constant tensor pass half of it, as JAX's max / min / clip do.
+// A model whose PyTorch module clamps uses dclamp; one whose JAX original
+// uses jnp.maximum or jnp.clip, and whose module repeats that with
+// torch.maximum / minimum, uses max_tie / min_tie.  Each value propagates a
+// NaN as the PyTorch operation does.  The float overloads let one model
+// template serve both the value-only rollout and the dual one.
 #pragma once
 
 #include <math.h>
@@ -98,6 +102,26 @@ __device__ __forceinline__ float dclamp_min(float a, float lo) { return fmaxf(a,
 __device__ __forceinline__ Dual dclamp_min(const Dual& a, float lo) {
   return Dual(fmaxf(a.v, lo), a.v >= lo ? a.t : 0.0f);
 }
+
+// torch.maximum / torch.minimum against a constant c: a NaN operand is
+// the result, and the tangent is weighted 1, 0.5 (a tie) or 0.
+__device__ __forceinline__ float max_tie(float a, float c) { return a != a ? a : fmaxf(a, c); }
+__device__ __forceinline__ Dual max_tie(const Dual& a, float c) {
+  const float w = a.v == c ? 0.5f : (a.v > c ? 1.0f : 0.0f);
+  return Dual(max_tie(a.v, c), a.t * w);
+}
+__device__ __forceinline__ float min_tie(float a, float c) { return a != a ? a : fminf(a, c); }
+__device__ __forceinline__ Dual min_tie(const Dual& a, float c) {
+  const float w = a.v == c ? 0.5f : (a.v < c ? 1.0f : 0.0f);
+  return Dual(min_tie(a.v, c), a.t * w);
+}
+
+// torch.clamp / torch.clamp_min of a value in the solver's own loops: a NaN
+// is the result, as in PyTorch (fmaxf / fminf would return the bound).
+__device__ __forceinline__ float clamp_nan(float a, float lo, float hi) {
+  return a != a ? a : fminf(fmaxf(a, lo), hi);
+}
+__device__ __forceinline__ float clamp_min_nan(float a, float lo) { return a != a ? a : fmaxf(a, lo); }
 
 // torch.remainder(a, b) for b > 0: fmod, shifted into [0, b); the tangent
 // passes unchanged.

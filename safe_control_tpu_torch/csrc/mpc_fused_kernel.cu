@@ -20,7 +20,10 @@
 // candidates, one thread each, on values only; the noise-aware acceptance.
 // Then the multiplier update, as _make_algorithm does.  Every sum runs in
 // the plain version's order, and the file is built with -fmad=false and no
-// fast math, so the two can agree to rounding.
+// fast math, so the two can agree to rounding; every clamp, max and min of
+// the solver returns a NaN operand as PyTorch's do (a model whose
+// derivative is NaN, as the C3BF and DPCBF barriers' at zero relative
+// velocity, gives the plain version's NaN solution).
 //
 // H is symmetric, so only its upper triangle is summed: the block's threads
 // take 2x2 tiles of entries (a, b), a <= b, one accumulator an entry (four
@@ -37,8 +40,8 @@
 // B=1, 1.68 ms a solve), the factor and substitutions (3 M barriers) take
 // 0.70 ms, the dual rollouts 0.25, the line search's rollouts 0.25, grad and
 // H 0.18.  Jr and Jc are read only while grad and H are formed, so L and
-// the line search's arrays reuse their space: the layout takes 44,872 bytes
-// of shared memory at Quad3D N=10 (M=40) and 111,012 at VTOL2D N=16
+// the line search's arrays reuse their space: the layout takes 44,932 bytes
+// of shared memory at Quad3D N=10 (M=40) and 111,072 at VTOL2D N=16
 // (M=64), room for five and two 128-thread blocks an SM.
 //
 // Layout: row-major (B, ...) inputs, one problem per block; no transpose.
@@ -56,6 +59,7 @@ namespace {
 constexpr int NUM_ALPHAS = 6;
 constexpr int OBS_DIM = 7;
 constexpr int COMMON = 9;  // rho0, growth, rho_max, reg, gain a, gain b, radius, beta, dt
+constexpr int OBSTACLE_FLOATS = 12;  // an Obstacle in shared memory
 constexpr float NOISE_EPS = (float)(4.0 * 1.1920928955078125e-07);  // 4 eps_f32
 
 // Threads a block (at least M = 64, the widest decision vector admitted),
@@ -88,7 +92,7 @@ struct Layout {
         NC(N_ * K_ + 2 * N_ * NB_), nP(nP_) {
     total = 0;
     P = take(nP); x0 = take(n); goal = take(n); uprev = take(m);
-    obs = take(K * 9);
+    obs = take(K * OBSTACLE_FLOATS);
     // Jr and Jc live from the rollouts until grad and H are formed; L and
     // the line search's candidates and rows then take their place.
     Jr = L = total;
@@ -150,7 +154,7 @@ __device__ void eval_rows(const Layout& lo, const float* sh, const Obstacle* obs
   T x[n], x1[n], u[m];
   for (int i = 0; i < n; ++i) x[i] = T(sh[lo.x0 + i]);
   sink.state(0, x);
-  for (int o = 0; o < K; ++o) hprev[o] = Model::dt_h(x, obs[o]);
+  for (int o = 0; o < K; ++o) hprev[o] = Model::dt_h(x, obs[o], mp);
 #pragma unroll 1
   for (int k = 0; k < N; ++k) {
     for (int j = 0; j < m; ++j) u[j] = U(k * m + j);
@@ -161,13 +165,13 @@ __device__ void eval_rows(const Layout& lo, const float* sh, const Obstacle* obs
     if constexpr (Model::REL_DEG == 2) Model::step(x1, u, x2, mp, dt);  // the same u_k, not x_{k+2}
 #pragma unroll 1
     for (int o = 0; o < K; ++o) {
-      const T h1 = Model::dt_h(x1, obs[o]);
+      const T h1 = Model::dt_h(x1, obs[o], mp);
       const T h0 = hprev[o];
       T cbf;
       if constexpr (Model::REL_DEG == 1) {
         cbf = (h1 - h0) + ga * h0;
       } else {
-        const T h2 = Model::dt_h(x2, obs[o]);
+        const T h2 = Model::dt_h(x2, obs[o], mp);
         cbf = (((h2 - 2.0f * h1) + h0) + ga * (h1 - h0)) + gb * h0;
       }
       sink.con(k * K + o, cbf);
@@ -246,7 +250,7 @@ __device__ void newton_step(const Layout& lo, float* sh, const Obstacle* obs, fl
   __syncthreads();
   const float* act0 = sh + lo.act0;
   for (int i = tid; i < NC; i += blockDim.x) {
-    sh[lo.act0 + i] = fmaxf(0.0f, sh[lo.lam + i] - rho * sh[lo.c0 + i]);
+    sh[lo.act0 + i] = clamp_min_nan(sh[lo.lam + i] - rho * sh[lo.c0 + i], 0.0f);
   }
   __syncthreads();
   // The active rows in index order: act[0] of them, in act[1..].
@@ -352,7 +356,7 @@ __device__ void newton_step(const Layout& lo, float* sh, const Obstacle* obs, fl
     }
     __syncthreads();
     if (tid >= j && tid < M) {
-      const float d = sqrtf(fmaxf(tmp[j], 1e-20f));
+      const float d = sqrtf(clamp_min_nan(tmp[j], 1e-20f));
       L[tid * M + j] = tid == j ? d : tmp[tid] / d;
     }
     __syncthreads();
@@ -389,7 +393,7 @@ __device__ void newton_step(const Layout& lo, float* sh, const Obstacle* obs, fl
     float* cand = sh + lo.cand + tid * M;
     for (int i = 0; i < M; ++i) {
       const int j = i % Model::m;
-      cand[i] = fminf(fmaxf(U[i] + al * stp[i], lbu[j]), ubu[j]);
+      cand[i] = clamp_nan(U[i] + al * stp[i], lbu[j], ubu[j]);
     }
     ValueSink vs{sh + lo.ra + tid * NR, sh + lo.ca + tid * NC, nullptr, Model::n};
     DecisionView<float> view{cand};
@@ -405,7 +409,7 @@ __device__ void newton_step(const Layout& lo, float* sh, const Obstacle* obs, fl
       dc = dc + (ra[i] - r0) * (ra[i] + r0);
     }
     for (int i = 0; i < NC; ++i) {
-      const float a = fmaxf(0.0f, sh[lo.lam + i] - rho * (ca[i] * sh[lo.cs + i]));
+      const float a = clamp_min_nan(sh[lo.lam + i] - rho * (ca[i] * sh[lo.cs + i]), 0.0f);
       const float a0 = sh[lo.act0 + i];
       dp = dp + (a - a0) * (a + a0);
     }
@@ -437,7 +441,7 @@ __device__ void newton_step(const Layout& lo, float* sh, const Obstacle* obs, fl
   __syncthreads();
   if (tid < M) {
     const int j = tid % Model::m;
-    U[tid] = fminf(fmaxf(U[tid] + sc[1] * stp[tid], lbu[j]), ubu[j]);
+    U[tid] = clamp_nan(U[tid] + sc[1] * stp[tid], lbu[j], ubu[j]);
   }
   __syncthreads();
 }
@@ -465,7 +469,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   for (int i = tid; i < m; i += blockDim.x) sh[lo.uprev + i] = uprev[static_cast<size_t>(b) * m + i];
   __syncthreads();
   Obstacle* ob = reinterpret_cast<Obstacle*>(sh + lo.obs);
-  static_assert(sizeof(Obstacle) <= 9 * sizeof(float), "Obstacle must fit 9 floats");
+  static_assert(sizeof(Obstacle) <= OBSTACLE_FLOATS * sizeof(float),
+                "Obstacle must fit its shared-memory slot");
   const float radius = P[6], beta = P[7];
   for (int o = tid; o < K; o += blockDim.x) {
     const float* src = obs + (static_cast<size_t>(b) * K + o) * OBS_DIM;
@@ -479,6 +484,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     q.e = fmaxf(fabsf(src[4]), 2.0f);
     q.ct = cosf(src[5]);
     q.st = sinf(src[5]);
+    q.d_min = d_min;
+    q.vx = src[3];
+    q.vy = src[4];
     q.circle = src[6] < 0.5f;
     ob[o] = q;
   }
@@ -488,7 +496,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   const float* ubu = lbu + m;
   float* U = sh + lo.U;
   for (int i = tid; i < M; i += blockDim.x) {
-    U[i] = fminf(fmaxf(U0[static_cast<size_t>(b) * M + i], lbu[i % m]), ubu[i % m]);
+    U[i] = clamp_nan(U0[static_cast<size_t>(b) * M + i], lbu[i % m], ubu[i % m]);
   }
   for (int i = tid; i < NC; i += blockDim.x) {
     sh[lo.cs + i] = 1.0f;
@@ -507,7 +515,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     const float* row = sh + lo.Jc + i * M;
     float s = 0.0f;
     for (int d = 0; d < M; ++d) s = s + row[d] * row[d];
-    sh[lo.cs + i] = 1.0f / fmaxf(sqrtf(s), 1e-2f);
+    sh[lo.cs + i] = 1.0f / clamp_min_nan(sqrtf(s), 1e-2f);
   }
   __syncthreads();
 
@@ -524,7 +532,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     }
     __syncthreads();
     for (int i = tid; i < NC; i += blockDim.x) {
-      sh[lo.lam + i] = fmaxf(0.0f, sh[lo.lam + i] - rho * (sh[lo.ca + i] * sh[lo.cs + i]));
+      sh[lo.lam + i] = clamp_min_nan(sh[lo.lam + i] - rho * (sh[lo.ca + i] * sh[lo.cs + i]), 0.0f);
     }
     rho = fminf(rho * P[1], P[2]);
     __syncthreads();
@@ -536,9 +544,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     ValueSink vs{nullptr, sh + lo.ca, xs_out + static_cast<size_t>(b) * (N + 1) * n, n};
     DecisionView<float> view{U};
     eval_rows<Model, float>(lo, sh, ob, view, sh + lo.hp, vs);
-    float mn = INFINITY;
-    for (int i = 0; i < NC; ++i) mn = fminf(mn, sh[lo.ca + i] * sh[lo.cs + i]);
-    viol_out[b] = fmaxf(0.0f, -mn);
+    float mn = INFINITY;  // a NaN row makes the minimum NaN, as torch.min does
+    for (int i = 0; i < NC; ++i) {
+      const float c = sh[lo.ca + i] * sh[lo.cs + i];
+      mn = (c != c || mn != mn) ? c + mn : fminf(mn, c);
+    }
+    viol_out[b] = clamp_min_nan(-mn, 0.0f);
   }
 }
 
@@ -572,6 +583,12 @@ int with_model(int model, F&& f) {
     MPC_FUSED_CASE(2, DynamicUnicycle2D)
     MPC_FUSED_CASE(3, Quad3D)
     MPC_FUSED_CASE(4, VTOL2D)
+    MPC_FUSED_CASE(5, Unicycle2D)
+    MPC_FUSED_CASE(6, KinematicBicycle2D)
+    MPC_FUSED_CASE(7, KinematicBicycle2D_C3BF)
+    MPC_FUSED_CASE(8, KinematicBicycle2D_DPCBF)
+    MPC_FUSED_CASE(9, Quad2D)
+    MPC_FUSED_CASE(10, Manipulator2D)
     default:
       return -1;
   }
@@ -609,7 +626,9 @@ extern "C" int mpc_fused_blocks_per_sm(int model, int N, int K, int NB, int nP) 
 }
 
 // model: 0 SingleIntegrator2D, 1 DoubleIntegrator2D, 2 DynamicUnicycle2D,
-// 3 Quad3D, 4 VTOL2D (solvers/mpc_fused.py::MODEL_IDS).  Returns a CUDA
+// 3 Quad3D, 4 VTOL2D, 5 Unicycle2D, 6 KinematicBicycle2D, 7 its C3BF and
+// 8 its DPCBF variant, 9 Quad2D, 10 Manipulator2D
+// (solvers/mpc_fused.py::MODEL_IDS).  Returns a CUDA
 // error code; -1 for an unknown model.
 extern "C" int mpc_fused_launch(int model, const void* x0, const void* goal, const void* obs,
                                 const void* uprev, const void* U0, const void* params,

@@ -2,7 +2,7 @@
 //
 // Each model is a struct with its sizes (n, m, REL_DEG), a step template
 // over the scalar type T (float, or Dual for the forward-mode columns) and
-// its discrete-time barrier.  Each template repeats, operation for
+// its discrete-time barrier dt_h(x, obstacle, mp).  Each template repeats, operation for
 // operation, the PyTorch model in safe_control_tpu_torch/dynamics/ that the
 // plain version differentiates, so that values and tangents round alike.
 // ``mp`` holds the model's constants as solvers/mpc_fused.py::_model_params
@@ -22,6 +22,7 @@ struct Obstacle {
   float circ_off;  // beta * (r + radius)^2
   float ar, br, e;  // superellipsoid: max(|a|,1e-3)+radius, max(|b|,1e-3)+radius, max(|e|,2)
   float ct, st;
+  float d_min, vx, vy;  // r + radius, and columns 3, 4 as a moving circle's velocity
   bool circle;
 };
 
@@ -52,7 +53,7 @@ struct SingleIntegrator2D {
     for (int i = 0; i < 2; ++i) out[i] = x[i] + u[i] * dt;
   }
   template <class T>
-  __device__ static T dt_h(const T* x, const Obstacle& o) { return h_point(x[0], x[1], o); }
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) { return h_point(x[0], x[1], o); }
 };
 
 // DoubleIntegrator2D: Euler, then the speed capped at v_max (mp[0]).
@@ -71,7 +72,7 @@ struct DoubleIntegrator2D {
     out[3] = v1 * scale;
   }
   template <class T>
-  __device__ static T dt_h(const T* x, const Obstacle& o) { return h_point(x[0], x[1], o); }
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) { return h_point(x[0], x[1], o); }
 };
 
 // DynamicUnicycle2D: [x, y, theta, v], Euler with theta wrapped.
@@ -85,7 +86,7 @@ struct DynamicUnicycle2D {
     out[3] = x[3] + u[0] * dt;
   }
   template <class T>
-  __device__ static T dt_h(const T* x, const Obstacle& o) { return h_point(x[0], x[1], o); }
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) { return h_point(x[0], x[1], o); }
 };
 
 // Quad3D: RK4 on A z + B u.  mp[0..15] rows 8..11 of B, mp[16] dt/2, mp[17] dt/6.
@@ -122,7 +123,7 @@ struct Quad3D {
     }
   }
   template <class T>
-  __device__ static T dt_h(const T* x, const Obstacle& o) { return h_circle(x[0], x[1], o); }
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) { return h_circle(x[0], x[1], o); }
 };
 
 // VTOL2D: [x, z, theta, vx, vz, w], full 2-D aero, Euler with theta wrapped.
@@ -203,7 +204,130 @@ struct VTOL2D {
     }
   }
   template <class T>
-  __device__ static T dt_h(const T* x, const Obstacle& o) { return h_circle(x[0], x[1], o); }
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) { return h_circle(x[0], x[1], o); }
+};
+
+// Unicycle2D: [x, y, theta], u = [v, omega], Euler with theta wrapped; the
+// discrete barrier is the plain circle whatever the obstacle's flag.
+struct Unicycle2D {
+  static constexpr int n = 3, m = 2, REL_DEG = 1;
+  template <class T>
+  __device__ static void step(const T* x, const T* u, T* out, const float*, float dt) {
+    out[0] = x[0] + (dcos(x[2]) * u[0]) * dt;
+    out[1] = x[1] + (dsin(x[2]) * u[0]) * dt;
+    out[2] = angle_normalize(x[2] + u[1] * dt);
+  }
+  template <class T>
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) {
+    return h_circle(x[0], x[1], o);
+  }
+};
+
+// KinematicBicycle2D: [x, y, theta, v], u = [a, beta], Euler with theta
+// wrapped and v clipped to [v_min, v_max] (half the tangent at a tie).
+// mp: 0 1 / rear_ax_dist, 1 v_min, 2 v_max.
+struct KinematicBicycle2D {
+  static constexpr int n = 4, m = 2, REL_DEG = 2;
+  template <class T>
+  __device__ static void step(const T* x, const T* u, T* out, const float* mp, float dt) {
+    const T c = dcos(x[2]), s = dsin(x[2]);
+    const T& v = x[3];
+    out[0] = x[0] + (v * c + ((-v) * s) * u[1]) * dt;
+    out[1] = x[1] + (v * s + (v * c) * u[1]) * dt;
+    out[2] = angle_normalize(x[2] + ((v * mp[0]) * u[1]) * dt);
+    out[3] = min_tie(max_tie(v + u[0] * dt, mp[1]), mp[2]);
+  }
+  template <class T>
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) {
+    return h_point(x[0], x[1], o);
+  }
+};
+
+// The obstacle's position and velocity relative to a bicycle robot.
+template <class T>
+__device__ __forceinline__ void relative_motion(const T* x, const Obstacle& o, T& px, T& py,
+                                                T& vx, T& vy) {
+  px = o.ox - x[0];
+  py = o.oy - x[1];
+  vx = o.vx - x[3] * dcos(x[2]);
+  vy = o.vy - x[3] * dsin(x[2]);
+}
+
+// The collision-cone barrier (C3BF) at the discrete margin beta = 1.01.
+struct KinematicBicycle2D_C3BF : KinematicBicycle2D {
+  static constexpr int REL_DEG = 1;
+  template <class T>
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) {
+    const float eps = (float)1e-6;
+    const float ego = o.d_min * (float)1.01;
+    T px, py, vx, vy;
+    relative_motion(x, o, px, py, vx, vy);
+    const T p_mag = dsqrt(px * px + py * py);
+    const T v_mag = dsqrt(vx * vx + vy * vy);
+    const T sqrt_term = dsqrt(max_tie(p_mag * p_mag - ego * ego, eps));
+    const T cos_phi = sqrt_term / (p_mag + eps);
+    return (px * vx + py * vy) + (p_mag * v_mag) * cos_phi;
+  }
+};
+
+// The dynamic parabolic barrier (DPCBF), s = 1.05.  mp[3]: sqrt(s^2 - 1).
+struct KinematicBicycle2D_DPCBF : KinematicBicycle2D {
+  static constexpr int REL_DEG = 1;
+  template <class T>
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float* mp) {
+    const float eps = (float)1e-6;
+    const float ego = o.d_min * (float)1.05;
+    T px, py, vx, vy;
+    relative_motion(x, o, px, py, vx, vy);
+    const T p_mag = dsqrt(px * px + py * py);
+    const T v_mag = dsqrt(vx * vx + vy * vy);
+    const T rot = datan2(py, px);
+    const T c = dcos(rot), sn = dsin(rot);
+    const T v_rel_x = c * vx + sn * vy;
+    const T v_rel_y = (-sn) * vx + c * vy;
+    const T d_safe = max_tie(p_mag * p_mag - ego * ego, eps);
+    const float scale = rdiv(mp[3], ego);
+    const T lam = (((float)0.1 * dsqrt(d_safe)) / max_tie(v_mag, eps)) * scale;
+    const T mu = (0.5f * dsqrt(d_safe)) * scale;
+    return (v_rel_x + lam * (v_rel_y * v_rel_y)) + mu;
+  }
+};
+
+// Quad2D: [x, z, theta, vx, vz, w], u = [F_r, F_l], Euler with theta wrapped.
+// mp: 0 1 / mass, 1 radius / inertia.
+struct Quad2D {
+  static constexpr int n = 6, m = 2, REL_DEG = 2;
+  static constexpr float G = (float)9.81;
+  template <class T>
+  __device__ static void step(const T* x, const T* u, T* out, const float* mp, float dt) {
+    const T gs = (-dsin(x[2])) * mp[0];
+    const T gc = dcos(x[2]) * mp[0];
+    const float k = mp[1];
+    out[0] = x[0] + x[3] * dt;
+    out[1] = x[1] + x[4] * dt;
+    out[2] = angle_normalize(x[2] + x[5] * dt);
+    out[3] = x[3] + (gs * u[0] + gs * u[1]) * dt;
+    out[4] = x[4] + ((gc * u[0] + gc * u[1]) + (-G)) * dt;
+    out[5] = x[5] + (k * u[0] + (-k) * u[1]) * dt;
+  }
+  template <class T>
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) {
+    return h_point(x[0], x[1], o);
+  }
+};
+
+// Manipulator2D: joint angles, u = joint rates, q + u dt.  Its MPC barrier
+// acts on barrier_pos(q) = 0 q[:2], a constant, as the JAX package's does.
+struct Manipulator2D {
+  static constexpr int n = 3, m = 3, REL_DEG = 1;
+  template <class T>
+  __device__ static void step(const T* x, const T* u, T* out, const float*, float dt) {
+    for (int i = 0; i < 3; ++i) out[i] = x[i] + u[i] * dt;
+  }
+  template <class T>
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) {
+    return h_point(x[0] * 0.0f, x[1] * 0.0f, o);
+  }
 };
 
 }  // namespace mpc_fused

@@ -9,9 +9,9 @@ CUDA device with ``use_fused_kernel=True`` that launches the fused CUDA
 kernel.
 
 ``build_fused_step`` is one batched MPC-CBF control step through
-``mpc_cbf.solve_dispatch``, Quad3D at N=10 by default: on a CUDA device
-with ``use_fused_kernel=True`` the solve is one launch of the generic fused
-kernel (``solvers/mpc_fused.py``).
+``mpc_cbf.solve_dispatch``, Quad3D at N=10 by default and any model the
+fused kernel takes: on a CUDA device with ``use_fused_kernel=True`` the
+solve is one launch of the generic fused kernel (``solvers/mpc_fused.py``).
 
 ``build_cbf_qp_step`` is one batched CBF-QP safety-filter step
 (DoubleIntegrator2D by default, K=5, 1600 ADMM iterations): nominal input,
@@ -28,7 +28,13 @@ import torch
 from safe_control_tpu_torch.core.spec import (
     DOUBLE_INTEGRATOR_2D,
     DYNAMIC_UNICYCLE_2D,
+    KINEMATIC_BICYCLE_2D,
+    KINEMATIC_BICYCLE_2D_C3BF,
+    KINEMATIC_BICYCLE_2D_DPCBF,
+    MANIPULATOR_2D,
+    QUAD_2D,
     QUAD_3D,
+    UNICYCLE_2D,
     make_spec,
 )
 from safe_control_tpu_torch.core.types import pad_obstacles
@@ -36,6 +42,11 @@ from safe_control_tpu_torch.dynamics import get_model
 from safe_control_tpu_torch.solvers import cbf_qp, mpc_cbf
 
 DT = 0.05
+
+# The obstacles of ``build_fused_step`` for the planar models: two circles;
+# the C3BF and DPCBF bicycles see them move (columns 3, 4: vx, vy).
+FUSED_OBSTACLES = [[3.0, 1.0, 0.5, 0.0, 0.0, 0.0, 0.0], [2.0, 2.5, 0.3, 0.0, 0.0, 0.0, 0.0]]
+MOVING_OBSTACLES = [[3.0, 1.0, 0.5, -0.5, 0.2, 0.0, 0.0], [2.0, 2.5, 0.3, 0.3, -0.4, 0.0, 0.0]]
 
 # The CBF-QP step's obstacles: two circles and one superellipsoid.
 CBF_QP_OBSTACLES = [
@@ -103,7 +114,11 @@ def build_fused_step(batch, model_name=QUAD_3D, horizon=10, num_obs=5, *, device
     z uniform in [4.5, 5.5], every other component 0; goal (6, 2, 5, 0, ...);
     the obstacle circle (3, 1, 0.5) padded with dummies to ``num_obs``.
     DynamicUnicycle2D takes ``build_step``'s inputs, so that this path and
-    the DU kernel's see the same problems.
+    the DU kernel's see the same problems.  The planar models start with
+    x, y uniform in [0, 3] (Manipulator2D: its joint angles in [-1, 1]),
+    headings in [-1, 1], the bicycles' speeds in [0.5, 2] and Quad2D's
+    pitch in [-0.2, 0.2] and velocities in [-0.5, 0.5]; goal (5, 2);
+    ``FUSED_OBSTACLES`` (``MOVING_OBSTACLES`` for C3BF and DPCBF).
     """
     spec = make_spec(model_name, a_max=1.0, w_max=0.5) if model_name == DYNAMIC_UNICYCLE_2D \
         else make_spec(model_name)
@@ -122,11 +137,13 @@ def build_fused_step(batch, model_name=QUAD_3D, horizon=10, num_obs=5, *, device
     if model_name == DYNAMIC_UNICYCLE_2D:
         _, args = build_step(batch, horizon, num_obs, device=device, dtype=dtype)
         return control_step, args
-    if model_name != QUAD_3D:
-        raise ValueError(f"build_fused_step has inputs for Quad3D and DynamicUnicycle2D, "
-                         f"not {model_name}")
-    rng = np.random.default_rng(0)
     n, m = model.N_STATES, model.N_CONTROLS
+    if model_name != QUAD_3D:
+        xs, goals, obs = _planar_inputs(model_name, batch, num_obs, device, dtype)
+        u_prevs = torch.zeros((batch, m), dtype=dtype, device=device)
+        Us = torch.zeros((batch, horizon, m), dtype=dtype, device=device)
+        return control_step, (xs, goals, obs, u_prevs, Us)
+    rng = np.random.default_rng(0)
     xs_np = np.zeros((batch, n))
     xs_np[:, :2] = rng.uniform(0, 3, (batch, 2))
     xs_np[:, 2] = rng.uniform(4.5, 5.5, batch)
@@ -139,6 +156,36 @@ def build_fused_step(batch, model_name=QUAD_3D, horizon=10, num_obs=5, *, device
     u_prevs = torch.zeros((batch, m), dtype=dtype, device=device)
     Us = torch.zeros((batch, horizon, m), dtype=dtype, device=device)
     return control_step, (xs, goals, obs, u_prevs, Us)
+
+
+def _planar_inputs(model_name, batch, num_obs, device, dtype):
+    """``build_fused_step``'s (xs, goals, obs) for the planar models."""
+    rng = np.random.default_rng(0)
+    n = get_model(model_name).N_STATES
+    if model_name == MANIPULATOR_2D:
+        xs_np = rng.uniform(-1, 1, (batch, n))
+    else:
+        xs_np = np.zeros((batch, n))
+        xs_np[:, :2] = rng.uniform(0, 3, (batch, 2))
+        if model_name == QUAD_2D:
+            xs_np[:, 2] = rng.uniform(-0.2, 0.2, batch)
+            xs_np[:, 3:5] = rng.uniform(-0.5, 0.5, (batch, 2))
+        elif model_name == UNICYCLE_2D:
+            xs_np[:, 2] = rng.uniform(-1, 1, batch)
+        elif model_name in (KINEMATIC_BICYCLE_2D, KINEMATIC_BICYCLE_2D_C3BF,
+                            KINEMATIC_BICYCLE_2D_DPCBF):
+            xs_np[:, 2] = rng.uniform(-1, 1, batch)
+            xs_np[:, 3] = rng.uniform(0.5, 2.0, batch)
+        else:
+            raise ValueError(f"build_fused_step has no inputs for {model_name}")
+    xs = torch.as_tensor(xs_np, dtype=dtype, device=device)
+    goals = torch.zeros((batch, n), dtype=dtype, device=device)
+    if model_name != MANIPULATOR_2D:
+        goals[:, :2] = torch.tensor([5.0, 2.0], dtype=dtype, device=device)
+    moving = model_name in (KINEMATIC_BICYCLE_2D_C3BF, KINEMATIC_BICYCLE_2D_DPCBF)
+    obs_one = pad_obstacles(MOVING_OBSTACLES if moving else FUSED_OBSTACLES, num_obs,
+                            device=device, dtype=dtype)
+    return xs, goals, obs_one[None].repeat(batch, 1, 1)
 
 
 def build_cbf_qp_step(batch, num_obs=5, *, device="cuda", dtype=torch.float32,

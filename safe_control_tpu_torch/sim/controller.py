@@ -191,13 +191,10 @@ class LocalTrackingController:
         - ``mpc_outer_iters`` / ``mpc_newton_iters``: the iteration budget.
         - ``mpc_scan_unroll`` / ``mpc_loop_unroll``: accepted; they steer
           XLA's unrolling in the JAX package and have no effect here.
-        - ``mpc_rti``: the real-time-iteration preset is not ported yet
-          (ROADMAP A.5) and raises.
+        - ``mpc_rti``: True selects the real-time-iteration budget
+          (``MPCConfig.rti``, 2 outer x 2 Newton); ``mpc_outer_iters`` /
+          ``mpc_newton_iters`` override either preset.
         """
-        if robot_spec.get("mpc_rti"):
-            raise NotImplementedError(
-                "the MPCConfig.rti preset is not yet ported to safe_control_tpu_torch "
-                "(ROADMAP A.5)")
         kw = dict(
             horizon=horizon,
             num_obs=5,
@@ -206,13 +203,14 @@ class LocalTrackingController:
         )
         if "mpc_scan_unroll" in robot_spec:
             kw["scan_unroll"] = int(robot_spec["mpc_scan_unroll"])
+        base = mpc_mod.MPCConfig.rti if robot_spec.get("mpc_rti") else mpc_mod.MPCConfig
         if "mpc_outer_iters" in robot_spec:
             kw["outer_iters"] = int(robot_spec["mpc_outer_iters"])
         if "mpc_newton_iters" in robot_spec:
             kw["newton_iters"] = int(robot_spec["mpc_newton_iters"])
         if "mpc_loop_unroll" in robot_spec:
             kw["loop_unroll"] = bool(robot_spec["mpc_loop_unroll"])
-        return mpc_mod.MPCConfig(**kw)
+        return base(**kw)
 
     @staticmethod
     def _pad_x0(X0, model):

@@ -21,7 +21,8 @@ Solver routing inside ``step``, one solver call for the whole batch:
   u_ref)``.  With ``cfg.mpc.use_fused_kernel`` (default False), float32
   states and a spec of plain floats it is one launch of the fused MPC
   kernel on CUDA tensors (its plain version on CPU tensors).  Optimal decay
-  raises ``NotImplementedError`` (ROADMAP A.5).
+  is the general solve with the two decay multipliers a stage (the fused
+  kernel does not take it, in the JAX package as here).
 - ``cbf_qp``: ``cbf_qp.solve_batch`` with ``backend="pallas"`` on CUDA
   float32 states, at every batch size: one launch of the QP kernel.
   Otherwise ``backend="xla"``, the general ``qp.solve_qp``, which is what
@@ -31,9 +32,8 @@ Solver routing inside ``step``, one solver call for the whole batch:
   selected obstacle, with the softer nominal gains (k_omega 3, k_a 0.5,
   k_v 0.5) for the nominal input.
 
-Models not yet ported (Unicycle2D, the KinematicBicycle2D family, Quad2D,
-Manipulator2D) raise the registry's "not yet ported" error; their branches
-below stay, so that they only need the models.
+Every model of the registry runs here; DynamicBicycle2D and DriftingCar
+are not ported yet and raise the registry's "not yet ported" error.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ Port of ``safe_control_tpu/solvers/cbf_qp.py``:
 
 Constraint rows come from ``torch.func`` derivatives of one h(x)
 (``barriers/hocbf.py``); all ``K`` rows always exist, and padded dummy
-obstacles become inert rows ``0 u + 1 >= 0``.  ``solve`` and
+obstacles become inert rows ``0 u + 1 >= 0``.  A model with several
+barriers per obstacle (Manipulator2D's 23 link circles) gives a block of
+rows per obstacle, obstacle by obstacle, each dummy's block inert.  ``solve`` and
 ``solve_batch`` take a leading batch axis B on every tensor.
 """
 
@@ -18,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from safe_control_tpu_torch.barriers.hocbf import tensor_fields, ct_cbf_row
+from safe_control_tpu_torch.barriers.hocbf import ct_cbf_row, ct_cbf_rows_multi, tensor_fields
 from safe_control_tpu_torch.core.types import is_dummy
 from safe_control_tpu_torch.dynamics import get_model
 from safe_control_tpu_torch.solvers import qp
@@ -44,16 +46,19 @@ def _assemble(model, model_name, spec, x, u_ref, obs, dt, mode):
     ``x (B,n)``, ``u_ref (B,m)``, ``obs (B,K,7)``.  A batched spec's tensor
     fields are ``(B,)``.
     """
-    if hasattr(model, "ct_multi_h"):
-        raise NotImplementedError(
-            "multi-row CBF-QPs (Manipulator2D) are not yet ported to safe_control_tpu_torch"
-        )
     B, m = u_ref.shape
     dtype, device = x.dtype, x.device
     fields = tensor_fields(spec)
     spec_rows = spec.replace(**{k: v[:, None] for k, v in fields.items()}) if fields else spec
-    a_rows, b_vals = ct_cbf_row(model, model_name, x[:, None, :], obs, spec_rows, dt, mode)
-    dummy = is_dummy(obs)
+    if hasattr(model, "ct_multi_h"):
+        # (B, K, C, m) blocks, flattened obstacle by obstacle.
+        a_rows, b_vals = ct_cbf_rows_multi(model, x[:, None, :], obs, spec_rows, dt, mode)
+        C = b_vals.shape[-1]
+        a_rows, b_vals = a_rows.reshape(B, -1, m), b_vals.reshape(B, -1)
+        dummy = torch.repeat_interleave(is_dummy(obs), C, dim=1)
+    else:
+        a_rows, b_vals = ct_cbf_row(model, model_name, x[:, None, :], obs, spec_rows, dt, mode)
+        dummy = is_dummy(obs)
     # Inert rows for padded dummy obstacles: 0 u + 1 >= 0.
     a_rows = torch.where(dummy[..., None], torch.zeros_like(a_rows), a_rows)
     b_vals = torch.where(dummy, torch.ones_like(b_vals), b_vals)

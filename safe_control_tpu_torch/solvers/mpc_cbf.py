@@ -13,7 +13,12 @@ with cold multipliers, constraint rows scaled by their Jacobian norms at the
 warm start, forward-mode Jacobians (``torch.func.jvp`` under
 ``torch.func.vmap``; no reverse mode), the damped projected Newton
 direction, the cancellation-free merit-difference line search with
-noise-aware acceptance, and the multiplier update.
+noise-aware acceptance, and the multiplier update.  The variants of the
+JAX package run too: ``optimal_decay`` (two decay multipliers a stage
+appended to the decision, softly pinned to ``omega_ref``), ``newton_f64``
+(the Gauss-Newton system and its solve in float64 inside a float32 solve)
+and ``polish_iters`` (the terminal active-set KKT polish); ``MPCConfig.rti``
+is the real-time-iteration budget.
 
 ``solve_batch`` routes the DynamicUnicycle2D N=8, K=5 configuration to the
 fused kernel (``solvers/mpc_du_kernel.py``) when ``cfg.use_fused_kernel`` is
@@ -25,6 +30,7 @@ generic fused kernel (``solvers/mpc_fused.py``), and logs every fallback.
 from __future__ import annotations
 
 import logging
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -35,7 +41,7 @@ from safe_control_tpu_torch.barriers.hocbf import tensor_fields
 from safe_control_tpu_torch.core import spec as spec_mod
 from safe_control_tpu_torch.dynamics import get_model
 from safe_control_tpu_torch.dynamics.base import MODEL_REGISTRY
-from safe_control_tpu_torch.solvers.chol import chol_solve
+from safe_control_tpu_torch.solvers.chol import chol_factor, chol_solve, chol_solve_factored
 
 # Per-model cost weights (state Q diagonal, input-move R diagonal).
 _WEIGHTS = {
@@ -66,8 +72,14 @@ def mpc_weights(model_name: str, *, device=None, dtype=torch.float32):
 class MPCConfig(NamedTuple):
     """Solver configuration; the fields and defaults of the JAX package.
 
-    ``optimal_decay``, ``polish_iters > 0`` and ``newton_f64`` are not ported
-    yet: ``solve`` raises ``NotImplementedError`` when one is set.
+    ``optimal_decay`` appends two decay multipliers (omega1, omega2) to each
+    stage's input, boxed to [0, 10] and pulled toward ``omega_ref`` by the
+    residual rows sqrt(p_sb) (omega - omega_ref); the CBF row becomes
+    dh + alpha w1 h (r=1) or ddh + (a1 w1 + a2 w2) dh + a1 a2 w1 w2 h (r=2).
+    ``newton_f64`` forms grad and H and solves the Newton step in float64
+    inside a float32 solve.  ``polish_iters`` runs that many terminal
+    active-set KKT steps after the augmented-Lagrangian loop, each kept only
+    if it is small and does not make the violation worse.
     ``scan_unroll`` and ``loop_unroll`` are XLA dispatch levers; they are
     accepted and have no effect here.
     """
@@ -85,11 +97,20 @@ class MPCConfig(NamedTuple):
     reg: float = 1e-6  # Levenberg damping
     viol_tol: float = 0.05  # feasibility threshold, scaled units
     polish_iters: int = 0
-    polish_ctol: float = 1e-2
+    polish_ctol: float = 1e-2  # scaled-units activity threshold of the polish
     newton_f64: bool = False
     use_fused_kernel: bool = False
     scan_unroll: int = 1
     loop_unroll: bool = False
+
+    @classmethod
+    def rti(cls, **kw) -> "MPCConfig":
+        """The real-time-iteration budget for latency-bound single-robot
+        control: 2 outer x 2 Newton iterations unless given, since a
+        warm-started MPC moves little in one period."""
+        kw.setdefault("outer_iters", 2)
+        kw.setdefault("newton_iters", 2)
+        return cls(**kw)
 
 
 class MPCState(NamedTuple):
@@ -105,19 +126,6 @@ class MPCResult(NamedTuple):
     xs: torch.Tensor  # (B, N+1, n) predicted states incl. x0
     feasible: torch.Tensor  # (B,) bool
     viol: torch.Tensor  # (B,) max scaled constraint violation
-
-
-def _check_supported(cfg: MPCConfig) -> None:
-    for name, on in (
-        ("optimal_decay", cfg.optimal_decay),
-        ("polish_iters > 0", cfg.polish_iters > 0),
-        ("newton_f64", cfg.newton_f64),
-    ):
-        if on:
-            raise NotImplementedError(
-                f"MPCConfig option {name} is not yet ported to safe_control_tpu_torch "
-                "(ROADMAP A.5)"
-            )
 
 
 def _model_name_of(model) -> str:
@@ -140,16 +148,22 @@ def _num_constraints(model, cfg: MPCConfig) -> int:
     return cfg.horizon * cfg.num_obs + 2 * cfg.horizon * n_bounded
 
 
+def decision_width(model, cfg: MPCConfig) -> int:
+    """Entries of U a stage: the model's inputs, plus the two decay
+    multipliers with ``optimal_decay``."""
+    return model.N_CONTROLS + (2 if cfg.optimal_decay else 0)
+
+
 def init_state(model_name: str, cfg: MPCConfig, batch: int, *, device=None,
                dtype=torch.float32) -> MPCState:
-    """Zero warm start for ``batch`` problems."""
-    _check_supported(cfg)
+    """Zero warm start for ``batch`` problems (decay multipliers at
+    ``omega_ref``)."""
     model = get_model(model_name)
     n_con = _num_constraints(model, cfg)
-    return MPCState(
-        U=torch.zeros((batch, cfg.horizon, model.N_CONTROLS), device=device, dtype=dtype),
-        lam=torch.zeros((batch, n_con), device=device, dtype=dtype),
-    )
+    U = torch.zeros((batch, cfg.horizon, decision_width(model, cfg)), device=device, dtype=dtype)
+    if cfg.optimal_decay:
+        U[..., model.N_CONTROLS:] = cfg.omega_ref
+    return MPCState(U=U, lam=torch.zeros((batch, n_con), device=device, dtype=dtype))
 
 
 def fused_kernel_available(model_name: str, cfg: MPCConfig) -> bool:
@@ -293,22 +307,26 @@ def solve(model_name: str, spec, x0, goal, obs, u_prev, mpc_state: MPCState,
     """MPC-CBF solve for a batch of robots.
 
     ``x0 (B, n)``, ``goal (B, n)``, ``obs (B, K, 7)`` (padded obstacles),
-    ``u_prev (B, m)`` and ``mpc_state`` with ``U (B, N, m)`` and
-    ``lam (B, n_con)``.
+    ``u_prev (B, m)`` and ``mpc_state`` with ``U (B, N, m')`` (m' = m + 2
+    with ``optimal_decay``) and ``lam (B, n_con)``.
     """
-    _check_supported(cfg)
     model = get_model(model_name)
-    N, n, m = cfg.horizon, model.N_STATES, model.N_CONTROLS
-    B, D = x0.shape[0], cfg.horizon * model.N_CONTROLS
+    N, n, m_ctrl = cfg.horizon, model.N_STATES, model.N_CONTROLS
+    m = decision_width(model, cfg)
+    B, D = x0.shape[0], N * m
     dtype, device = x0.dtype, x0.device
     Qd, Rd = mpc_weights(model_name, device=device, dtype=dtype)
     Qs, Rs = torch.sqrt(Qd), torch.sqrt(Rd)
     lb_u = model.u_lb(spec, device=device, dtype=dtype)
     ub_u = model.u_ub(spec, device=device, dtype=dtype)
+    if cfg.optimal_decay:  # the omegas' box keeps them sane
+        lb_u = torch.cat([lb_u, lb_u.new_zeros(lb_u.shape[:-1] + (2,))], dim=-1)
+        ub_u = torch.cat([ub_u, ub_u.new_full(ub_u.shape[:-1] + (2,), 10.0)], dim=-1)
     lb_x, ub_x = model.state_bounds(spec, device=device, dtype=dtype)
     bounded_idx = tuple(int(i) for i in np.nonzero(_bounded_mask(model))[0])
     a1, a2 = spec.mpc_cbf_alpha1, spec.mpc_cbf_alpha2
     obs_b = obs[..., None, :, :]  # (B, 1, K, 7): broadcasts over the states axis
+    sqrt_psb = math.sqrt(cfg.p_sb)
 
     # The closures below take U with any extra leading axes in front of the
     # batch axis (the line search evaluates all step lengths at once).
@@ -316,21 +334,21 @@ def solve(model_name: str, spec, x0, goal, obs, u_prev, mpc_state: MPCState,
         x = x0
         xs = []
         for k in range(N):
-            x = model.step(x, U[..., k, :], spec, dt)
+            x = model.step(x, U[..., k, :m_ctrl], spec, dt)
             xs.append(x)
         return torch.stack(xs, dim=-2)  # (..., B, N, n): x_1..x_N
 
     def residual(U):
         xs = rollout(U)
         state_res = (xs - goal[..., None, :]) * Qs
-        up = u_prev.expand(U.shape[:-2] + (m,))[..., None, :]
-        du = torch.diff(torch.cat([up, U], dim=-2), dim=-2)
+        up = u_prev.expand(U.shape[:-2] + (m_ctrl,))[..., None, :]
+        du = torch.diff(torch.cat([up, U[..., :m_ctrl]], dim=-2), dim=-2)
         input_res = du * Rs
         lead = U.shape[:-2]
-        return torch.cat(
-            [state_res.reshape(lead + (N * n,)), input_res.reshape(lead + (N * m,))],
-            dim=-1,
-        )
+        parts = [state_res.reshape(lead + (N * n,)), input_res.reshape(lead + (N * m_ctrl,))]
+        if cfg.optimal_decay:
+            parts.append(((U[..., m_ctrl:] - cfg.omega_ref) * sqrt_psb).reshape(lead + (N * 2,)))
+        return torch.cat(parts, dim=-1)
 
     def h_all(states):
         """Barrier values for a stack of states: (..., S, n) -> (..., S, K)."""
@@ -343,6 +361,7 @@ def solve(model_name: str, spec, x0, goal, obs, u_prev, mpc_state: MPCState,
         Relative degree 2: ddh + (a1+a2) dh + a1 a2 h_k over h(x_k),
         h(x_{k+1}) and h(x2_k) with x2_k = step(x_{k+1}, u_k) (the same
         u_k, not x_{k+2}).  h of the rollout is shared between stages.
+        With optimal decay the gains carry the stage's omegas.
         """
         xs = rollout(U)
         x0_b = x0.expand(xs.shape[:-2] + (n,))[..., None, :]
@@ -350,13 +369,20 @@ def solve(model_name: str, spec, x0, goal, obs, u_prev, mpc_state: MPCState,
         H = h_all(xs_full)  # (..., N+1, K)
         h_k, h_k1 = H[..., :N, :], H[..., 1:, :]
         if model.REL_DEG == 1:
-            cbf = (h_k1 - h_k) + spec.mpc_cbf_alpha * h_k
+            if cfg.optimal_decay:
+                cbf = (h_k1 - h_k) + spec.mpc_cbf_alpha * h_k * U[..., m_ctrl, None]
+            else:
+                cbf = (h_k1 - h_k) + spec.mpc_cbf_alpha * h_k
         else:
-            x2 = model.step(xs_full[..., 1:, :], U, spec, dt)  # (..., N, n)
+            x2 = model.step(xs_full[..., 1:, :], U[..., :m_ctrl], spec, dt)  # (..., N, n)
             H2 = h_all(x2)
             d_h = h_k1 - h_k
             dd_h = H2 - 2.0 * h_k1 + h_k
-            cbf = dd_h + (a1 + a2) * d_h + a1 * a2 * h_k
+            if cfg.optimal_decay:
+                w1, w2 = U[..., m_ctrl, None], U[..., m_ctrl + 1, None]
+                cbf = dd_h + (a1 * w1 + a2 * w2) * d_h + (a1 * a2 * w1 * w2) * h_k
+            else:
+                cbf = dd_h + (a1 + a2) * d_h + a1 * a2 * h_k
         cons = [cbf.reshape(U.shape[:-2] + (N * cfg.num_obs,))]
         for i in bounded_idx:
             cons.append(ub_x[i] - xs[..., i])  # upper
@@ -377,6 +403,10 @@ def solve(model_name: str, spec, x0, goal, obs, u_prev, mpc_state: MPCState,
     _, (Jc0,) = _jvp_jacobian(lambda u: (constraints(u.reshape(B, N, m)),), Uf)
     c_scale = 1.0 / torch.clamp_min(torch.linalg.vector_norm(Jc0, dim=1), 1e-2)
 
+    def rc(Uf_):
+        U_ = Uf_.reshape(B, N, m)
+        return residual(U_), constraints(U_) * c_scale
+
     def al_terms(U_flat, lam, rho):
         """Residual vector and AL activation act = max(0, lam - rho c)."""
         U = U_flat.reshape(U_flat.shape[:-1] + (N, m))
@@ -384,38 +414,44 @@ def solve(model_name: str, spec, x0, goal, obs, u_prev, mpc_state: MPCState,
         c = constraints(U) * c_scale
         return r, torch.clamp_min(lam - rho * c, 0.0)
 
+    use_f64 = cfg.newton_f64 and dtype == torch.float32
+    hdtype = torch.float64 if use_f64 else dtype
+
     def al_grad_hess(U_flat, lam, rho):
-        """grad = 2 Jr'r - Jc'act and H = 2 Jr'Jr + rho Jca'Jca."""
-
-        def rc(Uf_):
-            U_ = Uf_.reshape(B, N, m)
-            return residual(U_), constraints(U_) * c_scale
-
+        """grad = 2 Jr'r - Jc'act and H = 2 Jr'Jr + rho Jca'Jca, formed in
+        float64 with ``newton_f64`` on a float32 solve."""
         (r, c), (Jr, Jc) = _jvp_jacobian(rc, U_flat)  # Jr (B, D, n_r)
         act = torch.clamp_min(lam - rho * c, 0.0)
-        grad = 2.0 * (Jr @ r[..., None])[..., 0] - (Jc @ act[..., None])[..., 0]
-        active = (act > 0.0).to(dtype)
-        Jca = Jc * active[:, None, :]
-        H = 2.0 * (Jr @ Jr.transpose(1, 2)) + rho * (Jca @ Jca.transpose(1, 2))
+        Jr_h, Jc_h, r_h, act_h = (t.to(hdtype) for t in (Jr, Jc, r, act))
+        grad = 2.0 * (Jr_h @ r_h[..., None])[..., 0] - (Jc_h @ act_h[..., None])[..., 0]
+        Jca = Jc_h * (act_h > 0.0).to(hdtype)[:, None, :]
+        H = 2.0 * (Jr_h @ Jr_h.transpose(1, 2)) + rho.to(hdtype) * (Jca @ Jca.transpose(1, 2))
         return grad, H, r, act
 
     alphas = torch.tensor([1.0, 0.5, 0.25, 0.1, 0.03, 0.0], dtype=dtype, device=device)
-    eye = torch.eye(D, dtype=dtype, device=device)
     noise_eps = 4.0 * torch.finfo(dtype).eps
 
-    def newton_direction(Uf, grad, H):
-        """Damped projected-Newton direction."""
-        tr = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
-        H = H + cfg.reg * eye * (1.0 + tr / D)[:, None, None]
-        # Freeze variables at an active box bound whose gradient points
-        # outward; otherwise the clipped step bends into an ascent direction.
+    def free_set(Uf, grad):
+        """Variables not frozen at an active box bound whose gradient points
+        outward (otherwise the clipped step bends into an ascent direction)."""
         eps_b = 1e-7
         at_lb = (Uf <= lb_flat + eps_b) & (grad > 0.0)
         at_ub = (Uf >= ub_flat - eps_b) & (grad < 0.0)
-        free = torch.logical_not(at_lb | at_ub).to(dtype)
+        return torch.logical_not(at_lb | at_ub).to(grad.dtype)
+
+    def damped(H):
+        """H + reg (1 + tr(H) / D) I."""
+        eye = torch.eye(D, dtype=H.dtype, device=device)
+        tr = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
+        return H + cfg.reg * eye * (1.0 + tr / D)[:, None, None]
+
+    def newton_direction(Uf, grad, H):
+        """Damped projected-Newton direction, at H's precision."""
+        H = damped(H)
+        free = free_set(Uf.to(H.dtype), grad)
         Hf = free[:, :, None] * H * free[:, None, :] + torch.diag_embed(1.0 - free)
         gf = free * grad
-        return -chol_solve(Hf, gf), Hf, gf
+        return (-chol_solve(Hf, gf)).to(dtype), Hf.to(dtype), gf.to(dtype)
 
     def newton_step(Uf, lam, rho):
         grad, H, r0, act0 = al_grad_hess(Uf, lam, rho)
@@ -447,13 +483,61 @@ def solve(model_name: str, spec, x0, goal, obs, u_prev, mpc_state: MPCState,
         lam = torch.clamp_min(lam - rho * c, 0.0)
         rho = torch.clamp_max(rho * cfg.rho_growth, cfg.rho_max)
 
+    def polish_once(Uf, lam):
+        """One terminal active-set KKT step.
+
+        The AL multipliers estimate the active set; an equality-constrained
+        Gauss-Newton step on it (the Schur complement S = C' H^-1 C on the
+        free variables) pushes the active rows to their boundary.  Three
+        working-set refinements drop the rows whose multiplier comes out
+        negative.  The step is kept only if max |dU| < 0.2 and the scaled
+        violation does not grow past max(1.5 viol0, 2e-3).
+        """
+        (r, c), (Jr, Jc) = _jvp_jacobian(rc, Uf)  # Jr (B, D, n_r), Jc (B, D, n_c)
+        g = 2.0 * (Jr @ r[..., None])[..., 0]
+        grad_al = g - (Jc @ lam[..., None])[..., 0]
+        free = free_set(Uf, grad_al)
+        H = damped(2.0 * (Jr @ Jr.transpose(1, 2)))
+        Hf = free[:, :, None] * H * free[:, None, :] + torch.diag_embed(1.0 - free)
+        Cfree = free[:, :, None] * Jc  # (B, D, n_c)
+        L = chol_factor(Hf)
+        gfree = free * g
+        Hg = chol_solve_factored(L, gfree)
+        Y = chol_solve_factored(L[:, None], Cfree.transpose(1, 2))  # (B, n_c, D): H^-1 C
+        S0 = Cfree.transpose(1, 2) @ Y.transpose(1, 2)
+        q0 = (Cfree.transpose(1, 2) @ Hg[..., None])[..., 0] - c
+        n_c = S0.shape[-1]
+        eyec = torch.eye(n_c, dtype=dtype, device=device)
+
+        def solve_mu(a):
+            S = a[:, :, None] * S0 * a[:, None, :] + torch.diag_embed(1.0 - a)
+            tr = torch.diagonal(S, dim1=-2, dim2=-1).sum(-1)
+            S = S + 1e-7 * tr[:, None, None] / n_c * eyec
+            return chol_solve(S, a * q0)
+
+        a = ((lam > 0.0) | (c < cfg.polish_ctol)).to(dtype)
+        for _ in range(3):
+            a = a * (solve_mu(a) > 0.0).to(dtype)
+        mu = torch.clamp_min(solve_mu(a), 0.0) * a
+        dU = chol_solve_factored(L, (Cfree @ mu[..., None])[..., 0] - gfree) * free
+        cand = torch.clamp(Uf + dU, lb_flat, ub_flat)
+        c_new = constraints(cand.reshape(B, N, m)) * c_scale
+        viol0 = torch.clamp_min(-c.min(dim=-1).values, 0.0)
+        viol1 = torch.clamp_min(-c_new.min(dim=-1).values, 0.0)
+        ok = (dU.abs().amax(-1) < 0.2) & (viol1 <= torch.clamp_min(1.5 * viol0, 2e-3))
+        return (torch.where(ok[:, None], cand, Uf),
+                torch.where(ok[:, None], torch.clamp_min(mu, 0.0), lam))
+
+    for _ in range(cfg.polish_iters):
+        Uf, lam = polish_once(Uf, lam)
+
     U = Uf.reshape(B, N, m)
     # Violation in scaled (control-relevant) units.
     c = constraints(U) * c_scale
     viol = torch.clamp_min(-c.min(dim=-1).values, 0.0)
     xs = torch.cat([x0[:, None, :], rollout(U)], dim=1)
     return MPCResult(
-        u=U[:, 0, :m],
+        u=U[:, 0, :m_ctrl],
         state=MPCState(U=U, lam=lam),
         xs=xs,
         feasible=viol <= cfg.viol_tol,

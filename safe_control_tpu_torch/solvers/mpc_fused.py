@@ -32,6 +32,7 @@ from safe_control_tpu_torch.barriers.hocbf import dt_h as hocbf_dt_h
 from safe_control_tpu_torch.barriers.hocbf import tensor_fields
 from safe_control_tpu_torch.core import spec as spec_mod
 from safe_control_tpu_torch.dynamics import get_model
+from safe_control_tpu_torch.dynamics import kinematic_bicycle2d_dpcbf
 from safe_control_tpu_torch.dynamics import quad3d
 from safe_control_tpu_torch.solvers import mpc_cbf as mpc_mod
 from safe_control_tpu_torch.solvers.chol import chol_factor
@@ -43,7 +44,15 @@ MODEL_IDS = {
     spec_mod.DYNAMIC_UNICYCLE_2D: 2,
     spec_mod.QUAD_3D: 3,
     spec_mod.VTOL_2D: 4,
+    spec_mod.UNICYCLE_2D: 5,
+    spec_mod.KINEMATIC_BICYCLE_2D: 6,
+    spec_mod.KINEMATIC_BICYCLE_2D_C3BF: 7,
+    spec_mod.KINEMATIC_BICYCLE_2D_DPCBF: 8,
+    spec_mod.QUAD_2D: 9,
+    spec_mod.MANIPULATOR_2D: 10,
 }
+_BICYCLES = (spec_mod.KINEMATIC_BICYCLE_2D, spec_mod.KINEMATIC_BICYCLE_2D_C3BF,
+             spec_mod.KINEMATIC_BICYCLE_2D_DPCBF)
 MAX_DECISION = 64  # N * m, as the JAX package's fused_available
 BOUND_CLAMP = 1e6  # infinite single-sided state bounds become +-1e6
 ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.0)
@@ -241,6 +250,14 @@ def _model_params(model_name, spec, dt) -> list:
     computes them before they meet a float32 tensor."""
     if model_name == spec_mod.DOUBLE_INTEGRATOR_2D:
         return [spec.v_max]
+    if model_name in _BICYCLES:
+        out = [1.0 / spec.rear_ax_dist, spec.v_min, spec.v_max]
+        if model_name == spec_mod.KINEMATIC_BICYCLE_2D_DPCBF:
+            s = kinematic_bicycle2d_dpcbf.S_MARGIN
+            out.append(math.sqrt(s**2 - 1.0))
+        return out
+    if model_name == spec_mod.QUAD_2D:
+        return [1.0 / spec.mass, spec.radius * (1.0 / spec.inertia)]
     if model_name == spec_mod.QUAD_3D:
         rows = [c for row in quad3d.input_rows(spec) for c in row]
         return rows + [dt / 2, dt / 6]

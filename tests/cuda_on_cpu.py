@@ -13,6 +13,13 @@ filled with NaN bytes before each block, so that a read of shared memory
 that no thread wrote shows.  No FMA contraction, as ``-fmad=false`` on the
 card, so a kernel that rounds as its plain version does gives the same bits
 on the CPU.  A kernel that uses another CUDA feature extends the header.
+
+The C library's ``sinf``, ``cosf``, ``expf`` and ``atan2f`` round unlike
+PyTorch's CPU kernels.  ``build(..., ieee_math=True)`` replaces them by the
+float64 function rounded once to float32, and ``ieee_math`` patches
+``torch`` with the same functions and PyTorch's forward-mode derivative
+rules (``ieee_sqrt`` included), so that a plain version that differentiates
+through them can be held to such a build bit for bit.
 """
 
 import ctypes
@@ -57,6 +64,16 @@ enum cudaFuncAttribute {
 };
 constexpr int cudaSharedmemCarveoutMaxShared = 100;
 static inline int cudaGetLastError() { return 0; }
+#ifdef EMU_IEEE_MATH
+static inline float emu_sinf(float a) { return (float)sin((double)a); }
+static inline float emu_cosf(float a) { return (float)cos((double)a); }
+static inline float emu_expf(float a) { return (float)exp((double)a); }
+static inline float emu_atan2f(float y, float x) { return (float)atan2((double)y, (double)x); }
+#define sinf emu_sinf
+#define cosf emu_cosf
+#define expf emu_expf
+#define atan2f emu_atan2f
+#endif
 template <class F>
 static inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 // A CPU has no multiprocessors: occupancy is a question for the card.
@@ -190,6 +207,111 @@ def ieee_sqrt(t):
     return torch.ops.aten.sqrt(t.double()).to(t.dtype)
 
 
+def _ieee(op, t):
+    """``op`` in float64, rounded once to ``t``'s type."""
+    return op(t.double()).to(t.dtype)
+
+
+class _Sin(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return _ieee(torch.ops.aten.sin, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def jvp(ctx, t):
+        (x,) = ctx.saved_tensors
+        return t * _ieee(torch.ops.aten.cos, x)
+
+
+class _Cos(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return _ieee(torch.ops.aten.cos, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def jvp(ctx, t):
+        (x,) = ctx.saved_tensors
+        return t * -_ieee(torch.ops.aten.sin, x)
+
+
+class _Exp(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return _ieee(torch.ops.aten.exp, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(output)
+
+    @staticmethod
+    def jvp(ctx, t):
+        (r,) = ctx.saved_tensors
+        return t * r
+
+
+class _Sqrt(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return ieee_sqrt(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(output)
+
+    @staticmethod
+    def jvp(ctx, t):
+        (r,) = ctx.saved_tensors
+        return t / (2 * r)
+
+
+class _Atan2(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(y, x):
+        return torch.ops.aten.atan2(y.double(), x.double()).to(y.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def jvp(ctx, ty, tx):
+        y, x = ctx.saved_tensors
+        ty = torch.zeros_like(y) if ty is None else ty
+        tx = torch.zeros_like(x) if tx is None else tx
+        return (-y * tx + x * ty) / (y * y + x * x)
+
+
+def ieee_math(monkeypatch) -> None:
+    """Patch ``torch.sin``, ``cos``, ``exp``, ``sqrt`` and ``atan2`` with the
+    float64 functions rounded once to float32, the counterpart of a build
+    with ``ieee_math=True``.  Their forward-mode derivatives follow
+    PyTorch's rules (``csrc/mpc_fused_dual.h``): t cos v, t (-sin v), t r,
+    t / (2 r) and (-y tx + x ty) / (y^2 + x^2)."""
+    monkeypatch.setattr(torch, "sin", _Sin.apply)
+    monkeypatch.setattr(torch, "cos", _Cos.apply)
+    monkeypatch.setattr(torch, "exp", _Exp.apply)
+    monkeypatch.setattr(torch, "sqrt", _Sqrt.apply)
+    monkeypatch.setattr(torch, "atan2", _Atan2.apply)
+
+
 def _launch(match: re.Match) -> str:
     # kernel<...><<<blocks, threads[, shared[, stream]]>>>(
     #   ->  emu_launch(blocks, threads, shared, kernel<...>,
@@ -198,9 +320,11 @@ def _launch(match: re.Match) -> str:
     return f"emu_launch({config[0]}, {config[1]}, {shared}, {match.group(1)}, "
 
 
-def build(source: Path, tmp_path: Path) -> ctypes.CDLL:
+def build(source: Path, tmp_path: Path, ieee_math: bool = False) -> ctypes.CDLL:
     """``source`` (a ``csrc/*.cu``) built for the CPU under the emulation
-    into ``tmp_path``, and loaded; its headers are found beside it."""
+    into ``tmp_path``, and loaded; its headers are found beside it.  With
+    ``ieee_math`` the C library's sinf, cosf, expf and atan2f become the
+    float64 functions rounded to float32 (see :func:`ieee_math`)."""
     (tmp_path / "cuda_runtime.h").write_text(CUDA_ON_CPU)
     text = re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(", _launch, source.read_text())
     text = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
@@ -208,7 +332,8 @@ def build(source: Path, tmp_path: Path) -> ctypes.CDLL:
     cpp = tmp_path / f"{source.stem}.cpp"
     cpp.write_text(text)
     lib = tmp_path / f"lib{source.stem}_cpu.so"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+    defines = ["-DEMU_IEEE_MATH"] if ieee_math else []
+    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", *defines,
                     "-I", str(tmp_path), "-I", str(source.parent), "-o", str(lib), str(cpp)],
                    check=True, capture_output=True)
     return ctypes.CDLL(str(lib))

@@ -9,7 +9,10 @@ stay finite there.  The CBF-QP rows (A, b) of ``ct_cbf_row`` for
 DoubleIntegrator2D, SingleIntegrator2D and DynamicUnicycle2D, both modes,
 must agree with the JAX rows within 1e-9 (relative to the row's size, which
 reaches 1e9 on dummy rows in 'hard' mode) and stay finite; the r=2 rows
-differentiate twice through the ``torch.where`` of ``h_point``.
+differentiate twice through the ``torch.where`` of ``h_point``.  The
+Unicycle2D rows (the heading sigmoid), Manipulator2D's 23-row link-circle
+blocks, the KinematicBicycle2D family's and Quad2D's rows are held to 1e-9
+likewise.
 """
 
 import jax
@@ -23,6 +26,11 @@ from safe_control_tpu.barriers import hocbf as jhocbf
 from safe_control_tpu.core.spec import (
     DOUBLE_INTEGRATOR_2D,
     DYNAMIC_UNICYCLE_2D,
+    KINEMATIC_BICYCLE_2D,
+    KINEMATIC_BICYCLE_2D_C3BF,
+    KINEMATIC_BICYCLE_2D_DPCBF,
+    MANIPULATOR_2D,
+    QUAD_2D,
     SINGLE_INTEGRATOR_2D,
     UNICYCLE_2D,
     make_spec,
@@ -181,11 +189,73 @@ def test_ct_rows_of_a_batched_spec():
         np.testing.assert_allclose(b[i].numpy(), bi.numpy(), rtol=1e-12, atol=1e-12)
 
 
+def _rows_close(got, want):
+    """Finite, and within 1e-9 of the JAX rows relative to the row's size."""
+    g, w = (np.asarray(a) for a in got), (np.asarray(a) for a in want)
+    for a, b in zip(g, w):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-9)
+
+
 def test_unported_barriers_raise():
-    ts = tspec.make_spec(UNICYCLE_2D)
-    tm = get_model(DOUBLE_INTEGRATOR_2D)
-    x = torch.zeros((1, 4))
-    with pytest.raises(NotImplementedError, match="Unicycle2D"):
-        thocbf.ct_h(tm, UNICYCLE_2D, x, torch.tensor(OBS["circle"]), ts)
-    with pytest.raises(NotImplementedError, match="Manipulator2D"):
-        thocbf.ct_cbf_rows_multi(tm, x, torch.tensor(OBS["circle"]), ts, DT)
+    """The two barrier branches that wait for their models in the JAX
+    package's layout, now held to it: Unicycle2D's ``ct_h`` with the heading
+    sigmoid (and its rows), and Manipulator2D's ``ct_cbf_rows_multi``, in
+    both modes, float64."""
+    rng = np.random.default_rng(6)
+    x_uni = np.concatenate([_positions(32, 7), rng.uniform(-4, 4, (32, 1))], axis=1)
+    x_arm = rng.uniform(-2, 2, (32, 3))
+    for name, x in ((UNICYCLE_2D, x_uni), (MANIPULATOR_2D, x_arm)):
+        js, ts = make_spec(name), tspec.make_spec(name)
+        jm, tm = jget_model(name), get_model(name)
+        for kind, ob in OBS.items():
+            if name == UNICYCLE_2D and kind == "dummy":
+                # 1000 m away the sigmoid's exp overflows: NaN or inf / inf in
+                # both packages, whose quotient rules then part ways; the
+                # CBF-QP makes a dummy's row inert.
+                continue
+            for mode in ("cbf", "hard"):
+                with jax.enable_x64(True):
+                    jo = jnp.asarray(ob)
+                    if name == UNICYCLE_2D:
+                        want_h = jax.vmap(lambda xx: jhocbf.ct_h(jm, name, xx, jo, js))(
+                            jnp.asarray(x))
+                        want = jax.vmap(lambda xx: jhocbf.ct_cbf_row(
+                            jm, name, xx, jo, js, DT, mode))(jnp.asarray(x))
+                    else:
+                        want = jax.vmap(lambda xx: jhocbf.ct_cbf_rows_multi(
+                            jm, xx, jo, js, DT, mode))(jnp.asarray(x))
+                    want = [np.asarray(w) for w in want]
+                tx, to = torch.as_tensor(x), torch.tensor(ob, dtype=torch.float64)
+                if name == UNICYCLE_2D:
+                    got_h = thocbf.ct_h(tm, name, tx, to, ts)
+                    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), rtol=1e-12,
+                                               atol=1e-12)
+                    got = thocbf.ct_cbf_row(tm, name, tx, to, ts, DT, mode)
+                else:
+                    got = thocbf.ct_cbf_rows_multi(tm, tx, to, ts, DT, mode)
+                    assert got[0].shape == (32, 23, 3) and got[1].shape == (32, 23)
+                _rows_close(got, want)
+
+
+@pytest.mark.parametrize("name", [KINEMATIC_BICYCLE_2D, KINEMATIC_BICYCLE_2D_C3BF,
+                                  KINEMATIC_BICYCLE_2D_DPCBF, QUAD_2D])
+def test_new_model_rows_match_jax_f64(name):
+    """The CBF-QP rows of the bicycles (r=2 circle / superellipsoid, and the
+    r=1 C3BF and DPCBF barriers against moving circles) and of Quad2D (r=2),
+    both modes."""
+    rng = np.random.default_rng(8)
+    jm, tm = jget_model(name), get_model(name)
+    n = jm.N_STATES
+    x = np.concatenate([_positions(32, 9), rng.uniform(-3, 3, (32, 1)),
+                        rng.uniform(0.3, 2.0, (32, 1)), rng.uniform(-1, 1, (32, n - 4))], axis=1)
+    js, ts = make_spec(name), tspec.make_spec(name)
+    obs = dict(OBS, moving=[2.0, 1.0, 0.4, -0.6, 0.3, 0.0, 0.0])
+    for ob in obs.values():
+        for mode in ("cbf", "hard"):
+            with jax.enable_x64(True):
+                want = jax.vmap(lambda xx: jhocbf.ct_cbf_row(
+                    jm, name, xx, jnp.asarray(ob), js, DT, mode))(jnp.asarray(x))
+            got = thocbf.ct_cbf_row(tm, name, torch.as_tensor(x), torch.tensor(ob, dtype=torch.float64),
+                                    ts, DT, mode)
+            _rows_close(got, want)

@@ -11,6 +11,11 @@ kernel module, whose plain version runs on the CPU): |du| < 2e-3 and equal
 DoubleIntegrator2D anchors, K=5) and c5 (20 DynamicUnicycle2D anchors,
 K=8) within 1e-3 of the float64 SLSQP solutions, and the first 60 steps of
 the c1 closed loop within 5e-3 of its golden trajectory.
+
+Unicycle2D, the KinematicBicycle2D family (C3BF and DPCBF against moving
+circles), Quad2D and Manipulator2D (23 rows an obstacle: n=3, m=118 at
+K=5) are held to the JAX package in float32 (2e-3, equal flags) and, in
+float64, to 1e-6.
 """
 
 import dataclasses
@@ -25,7 +30,13 @@ import torch
 from safe_control_tpu.core.spec import (
     DOUBLE_INTEGRATOR_2D,
     DYNAMIC_UNICYCLE_2D,
+    KINEMATIC_BICYCLE_2D,
+    KINEMATIC_BICYCLE_2D_C3BF,
+    KINEMATIC_BICYCLE_2D_DPCBF,
+    MANIPULATOR_2D,
+    QUAD_2D,
     SINGLE_INTEGRATOR_2D,
+    UNICYCLE_2D,
     make_spec,
 )
 from safe_control_tpu.core.types import pad_obstacles as jpad
@@ -164,3 +175,82 @@ def test_closed_loop_c1_first_60_steps():
         x = model.step(x, r.u, spec, DT)
         dev = max(dev, _dev(x[0, :2], gold[k + 1, :2]))
     assert dev < 5e-3, dev
+
+
+MOVING = np.asarray(jpad(jnp.asarray([[2.0, 2.0, 0.5, -0.4, -0.1, 0, 0],
+                                      [1.2, 2.8, 0.4, 0.2, -0.5, 0, 0]], jnp.float32), 5))
+ARM_OBS = np.asarray(jpad(jnp.asarray([[1.6, 1.2, 0.3, 0, 0, 0, 0],
+                                       [0.4, 1.9, 0.3, 0, 0, 0, 0],
+                                       [-1.0, 1.5, 0.4, 0, 0, 0, 0]], jnp.float32), 5))
+
+
+def new_model_case(name, seed=4):
+    """States, nominal inputs and obstacles: robots near the obstacles and
+    moving at them (the arm's links reach them), nominal inputs that push."""
+    rng = np.random.default_rng(seed)
+    if name == MANIPULATOR_2D:
+        x = rng.uniform(0.2, 1.2, (B, 3))
+        u = rng.uniform(-2.0, 2.0, (B, 3))
+        return x, u, np.tile(ARM_OBS[None], (B, 1, 1))
+    pos = rng.uniform(0.6, 1.4, (B, 2))
+    if name == UNICYCLE_2D:
+        x = np.concatenate([pos, rng.uniform(0.3, 1.2, (B, 1))], axis=1)
+        u = np.stack([rng.uniform(0.3, 1.0, B), rng.uniform(-0.5, 0.5, B)], axis=1)
+    elif name == QUAD_2D:
+        x = np.concatenate([pos, rng.uniform(-0.2, 0.2, (B, 1)), rng.uniform(0.2, 0.8, (B, 2)),
+                            np.zeros((B, 1))], axis=1)
+        u = rng.uniform(4.0, 9.0, (B, 2))
+    else:
+        x = np.concatenate([pos, rng.uniform(0.3, 1.2, (B, 1)), rng.uniform(0.4, 1.5, (B, 1))],
+                           axis=1)
+        u = np.stack([rng.uniform(0.5, 2.0, B), rng.uniform(-0.3, 0.3, B)], axis=1)
+    moving = name in (KINEMATIC_BICYCLE_2D_C3BF, KINEMATIC_BICYCLE_2D_DPCBF)
+    return x, u, np.tile((MOVING if moving else OBS)[None], (B, 1, 1))
+
+
+@pytest.mark.parametrize("name", [UNICYCLE_2D, KINEMATIC_BICYCLE_2D, KINEMATIC_BICYCLE_2D_C3BF,
+                                  KINEMATIC_BICYCLE_2D_DPCBF, QUAD_2D, MANIPULATOR_2D])
+def test_new_model_solve_batch_matches_jax(name):
+    x, u_ref, obs = new_model_case(name)
+    js, ts = make_spec(name), tspec.make_spec(name)
+    want = [np.asarray(t) for t in jcbf.solve_batch(
+        name, js, *(jnp.asarray(a, jnp.float32) for a in (x, u_ref, obs)), DT, backend="xla")]
+    assert (np.abs(want[0] - u_ref) > 1e-2).any()  # a constraint binds
+    for backend in ("xla", "pallas"):
+        got = cbf_qp.solve_batch(name, ts, _t(x), _t(u_ref), _t(obs), DT, backend=backend)
+        np.testing.assert_allclose(got.u.numpy(), want[0], atol=2e-3, err_msg=backend)
+        np.testing.assert_array_equal(got.feasible.numpy(), want[1], err_msg=backend)
+    with jax.enable_x64(True):
+        want64 = [np.asarray(t) for t in jcbf.solve_batch(
+            name, js, *(jnp.asarray(a, jnp.float64) for a in (x, u_ref, obs)), DT,
+            backend="xla")]
+    got64 = cbf_qp.solve_batch(name, ts, *(_t(a, torch.float64) for a in (x, u_ref, obs)), DT,
+                               backend="xla")
+    np.testing.assert_allclose(got64.u.numpy(), want64[0], rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got64.feasible.numpy(), want64[1])
+    finite = np.isfinite(want64[2])
+    np.testing.assert_allclose(got64.h_min.numpy()[finite], want64[2][finite], atol=1e-6)
+    if name == MANIPULATOR_2D:  # 5 obstacles x 23 link circles + the input box
+        P, q, A, lo, hi = cbf_qp._assemble(get_model(name), name, ts, _t(x), _t(u_ref),
+                                           _t(obs), DT, "cbf")[:5]
+        assert A.shape == (B, 118, 3) and torch.equal(A[:, 69:115], torch.zeros_like(A[:, 69:115]))
+
+
+@pytest.mark.gpu
+def test_manipulator_cbf_qp_on_card_matches_plain_version(monkeypatch):
+    """On a card: the Manipulator2D CBF-QP (n=3, m=118: 32 lanes a
+    problem) through the QP kernel, one launch, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    dev = torch.device("cuda", 0)
+    x, u_ref, obs = (_t(a).to(dev) for a in new_model_case(MANIPULATOR_2D))
+    ts = tspec.make_spec(MANIPULATOR_2D)
+    before = qpk.LAUNCH_COUNT
+    kern = cbf_qp.solve_batch(MANIPULATOR_2D, ts, x, u_ref, obs, DT, backend="pallas")
+    torch.cuda.synchronize()
+    assert qpk.LAUNCH_COUNT == before + 1
+    assert qpk.launch_shape(118)[0] == 32
+    monkeypatch.setattr(qpk, "solve_qp_batch", qpk.solve_qp_batch_reference)
+    plain = cbf_qp.solve_batch(MANIPULATOR_2D, ts, x, u_ref, obs, DT, backend="pallas")
+    assert (kern.u - plain.u).abs().max().item() < 2e-3
+    assert torch.equal(kern.feasible, plain.feasible)

@@ -15,7 +15,7 @@ package's, driven the same way:
   dropped, the first goal's FoV test deciding the start mode) and
   ``set_unknown_obs`` (padding to 7 columns);
 - the card by default: without CUDA the constructor raises unless the
-  caller asks for the CPU.
+  caller asks for the CPU; ``mpc_rti`` selects ``MPCConfig.rti``.
 """
 
 import csv
@@ -132,6 +132,11 @@ def test_runs_on_the_card_unless_asked_for_the_cpu():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             LocalTrackingController([1.0, 1.0], {"model": "SingleIntegrator2D"})
-    with pytest.raises(NotImplementedError, match="A.5"):
-        LocalTrackingController([1.0, 1.0, 0.0, 0.0], {"model": "DynamicUnicycle2D",
-                                                       "mpc_rti": True}, device="cpu")
+    # the real-time-iteration preset, as the JAX controller builds it
+    for extra in ({}, {"mpc_newton_iters": 3}):
+        rs = {"model": "VTOL2D", "mpc_rti": True, **extra}
+        rti = LocalTrackingController([0.0, 10.0, 0.0, 10.0, 0.0, 0.0], rs, device="cpu")
+        want = JaxController._build_mpc_cfg(rs, 30, "mpc_cbf")
+        assert rti.cfg.mpc == interop.config_from_jax(want)._replace(scan_unroll=1)
+        assert (rti.cfg.mpc.outer_iters, rti.cfg.mpc.newton_iters) == \
+            (2, extra.get("mpc_newton_iters", 2))

@@ -17,6 +17,13 @@ geometries and gates of the JAX kernel's own tests
 - in float64 at Quad3D N=10 with the full 8x3 budget, against JAX
   ``mpc_cbf.solve`` in float64: 1e-6.  A wrong tangent breaks this.
 
+The six instantiations that came with Unicycle2D, the KinematicBicycle2D
+family, Quad2D and Manipulator2D: the plain version in float64 against
+JAX's ``mpc_cbf.solve`` at 1e-6 (N=6, the full budget), and in float32
+against JAX's fused kernel in interpret mode at 2e-3 (DPCBF's atan2 is
+there a polynomial).  Manipulator2D has no MPC cost weights in either
+package, so both packages' solves raise ``KeyError`` for it.
+
 ``solve_dispatch`` routes a supported configuration through
 ``solve_fused_batch`` and falls back, with one log record per reason, on
 an unsupported one.  The CUDA kernel itself is checked by the ``gpu``-marked
@@ -174,6 +181,13 @@ def _jax_cfg(**kw):
     (DYNAMIC_UNICYCLE_2D, _jax_cfg(horizon=8, newton_f64=True)),
     ("SingleIntegrator2D", _jax_cfg(horizon=32)),
     ("DoubleIntegrator2D", _jax_cfg(horizon=33)),
+    ("Unicycle2D", _jax_cfg(horizon=10)),
+    ("KinematicBicycle2D", _jax_cfg(horizon=32)),
+    ("KinematicBicycle2D_C3BF", _jax_cfg(horizon=33)),
+    ("KinematicBicycle2D_DPCBF", _jax_cfg(horizon=10, polish_iters=1)),
+    ("Quad2D", _jax_cfg(horizon=10, newton_f64=True)),
+    ("Manipulator2D", _jax_cfg(horizon=21)),  # M = 63
+    ("Manipulator2D", _jax_cfg(horizon=22)),  # M = 66
 ])
 def test_fused_available_agrees_with_jax(model_name, cfg):
     assert tfused.fused_available(model_name, interop.config_from_jax(cfg)) == \
@@ -182,8 +196,10 @@ def test_fused_available_agrees_with_jax(model_name, cfg):
 
 def test_fused_available_needs_a_cuda_instantiation():
     cfg = tmpc.MPCConfig(horizon=4)
-    assert not tfused.fused_available("Unicycle2D", cfg)  # JAX admits it; not ported
+    assert jfused.fused_available("DynamicBicycle2D", jmpc.MPCConfig(horizon=4))
+    assert not tfused.fused_available("DynamicBicycle2D", cfg)  # JAX admits it; not ported
     assert set(tfused.MODEL_IDS) == set(tmpc.MODEL_REGISTRY)
+    assert len(tfused.MODEL_IDS) == 11 and sorted(tfused.MODEL_IDS.values()) == list(range(11))
 
 
 def _quad_inputs(B=2, N=3):
@@ -228,19 +244,25 @@ def test_solve_dispatch_falls_back_with_one_log_record(caplog):
     want = tmpc.solve(QUAD_3D, spec, xs, goals, obs, ups, st, DT, wide)
     assert torch.equal(res.u, want.u) and torch.equal(again.u, want.u)
 
-    # optimal decay falls back too, to the general solve, which does not take it yet
+    # optimal decay falls back too, with one record, to the general solve
     caplog.clear()
-    decay = tmpc.MPCConfig(horizon=8, num_obs=5, optimal_decay=True, use_fused_kernel=True)
+    decay = tmpc.MPCConfig(horizon=4, num_obs=5, optimal_decay=True, use_fused_kernel=True,
+                           outer_iters=2, newton_iters=1)
     du = interop.spec_from_jax(make_spec(DYNAMIC_UNICYCLE_2D))
     B = 2
-    st = tmpc.MPCState(U=torch.zeros(B, 8, 2), lam=torch.zeros(B, 56))
+    one_obs = np.asarray(pad_obstacles(jnp.asarray([[1.2, 0.1, 0.4, 0, 0, 0, 0]]), 5))
+    du_args = (torch.tensor([[0.0, 0.0, 0.0, 0.5]] * B), torch.tensor([[3.0, 0.5, 0, 0]] * B),
+               torch.as_tensor(one_obs)[None].repeat(B, 1, 1), torch.zeros(B, 2))
+    st = tmpc.init_state(DYNAMIC_UNICYCLE_2D, decay, B)
     with caplog.at_level(logging.WARNING, logger="safe_control_tpu_torch.solvers"):
-        with pytest.raises(NotImplementedError):
-            tmpc.solve_dispatch(DYNAMIC_UNICYCLE_2D, du, torch.zeros(B, 4), torch.zeros(B, 4),
-                                torch.zeros(B, 5, 7), torch.zeros(B, 2), st, DT, decay)
+        res = tmpc.solve_dispatch(DYNAMIC_UNICYCLE_2D, du, *du_args, st, DT, decay)
+        again = tmpc.solve_dispatch(DYNAMIC_UNICYCLE_2D, du, *du_args, st, DT, decay)
     records = [r for r in caplog.records if "fell back" in r.getMessage()]
     assert len(records) == 1 and "optimal_decay=True" in records[0].getMessage()
     assert tfused.DISPATCH_COUNT == before
+    want = tmpc.solve(DYNAMIC_UNICYCLE_2D, du, *du_args, st, DT, decay)
+    assert torch.equal(res.u, want.u) and torch.equal(again.state.U, want.state.U)
+    assert res.state.U.shape == (B, 4, 4) and torch.isfinite(res.u).all()
 
 
 def test_solve_fused_single_contract():
@@ -275,9 +297,12 @@ def test_wrapper_rejects_bad_inputs():
         tfused.solve_fused_batch(QUAD_3D, batched, *good, DT, cfg)
 
 
-def test_cuda_source_matches_module():
+def test_cuda_source_matches_module(monkeypatch):
     """The entry point's model ids, the parameter block's fixed head and each
-    model's constant count agree between the CUDA source and the module."""
+    model's constant count agree between the CUDA source and the module.
+    (Manipulator2D has no MPC cost weights in either package; unit weights
+    stand in, to size its parameter block.)"""
+    monkeypatch.setitem(tmpc._WEIGHTS, "Manipulator2D", ([1.0] * 3, [1.0] * 3))
     kernel = (CSRC / "mpc_fused_kernel.cu").read_text()
     models = (CSRC / "mpc_fused_models.h").read_text()
     cases = dict((name, int(i)) for i, name in re.findall(r"MPC_FUSED_CASE\((\d+), (\w+)\)",
@@ -292,9 +317,12 @@ def test_cuda_source_matches_module():
         params = tfused.kernel_params(name, spec, DT, cfg)
         assert len(params) == 9 + m.N_STATES + 3 * m.N_CONTROLS + 3 * len(pb.bounded) + \
             len(tfused._model_params(name, spec, DT))
-        sizes = re.search(rf"struct {name} {{\s*static constexpr int n = (\d+), m = (\d+), "
-                          rf"REL_DEG = (\d+);", models)
-        assert tuple(int(v) for v in sizes.groups()) == (m.N_STATES, m.N_CONTROLS, m.REL_DEG)
+        base, rel = re.search(rf"struct {name}(?: : (\w+))? {{\s*static constexpr int "
+                              rf"(?:n = \d+, m = \d+, )?REL_DEG = (\d+);", models).groups()
+        sizes = re.search(rf"struct {base or name}(?: : \w+)? {{\s*static constexpr int "
+                          rf"n = (\d+), m = (\d+), ", models)
+        assert tuple(int(v) for v in sizes.groups()) + (int(rel),) == \
+            (m.N_STATES, m.N_CONTROLS, m.REL_DEG)
     # VTOL2D's constants in the order the header's comment lists them
     vt = interop.spec_from_jax(make_spec(VTOL_2D))
     mp = tfused._model_params(VTOL_2D, vt, DT)
@@ -324,8 +352,81 @@ def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch):
     assert (kern.viol - plain.viol).abs().max().item() <= 1e-3
 
 
+@pytest.mark.gpu
+def test_new_instantiation_matches_plain_version_on_card(cuda_device):
+    """On a card: the DPCBF bicycle's instantiation (moving obstacles) against
+    its plain version, one launch, within the kernel envelope."""
+    from safe_control_tpu_torch import entry
+
+    name = "KinematicBicycle2D_DPCBF"
+    cfg = tmpc.MPCConfig(horizon=10, num_obs=5)
+    spec = interop.spec_from_jax(make_spec(name))
+    ins = entry.build_fused_step(64, model_name=name, device=cuda_device)[1]
+    plain = tfused.solve_fused_batch_reference(name, spec, *ins, DT, cfg)
+    before = tfused.LAUNCH_COUNT
+    kern = tfused.solve_fused_batch(name, spec, *ins, DT, cfg)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCH_COUNT == before + 1
+    assert torch.isfinite(kern.U).all()
+    assert (kern.U - plain.U).abs().max().item() < 5e-3
+    assert (kern.xs - plain.xs).abs().max().item() < 5e-3
+    assert (kern.viol - plain.viol).abs().max().item() <= 1e-3
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     return torch.device("cuda", 0)
+
+
+NEW_FUSED = ["Unicycle2D", "KinematicBicycle2D", "KinematicBicycle2D_C3BF",
+             "KinematicBicycle2D_DPCBF", "Quad2D"]
+
+
+def new_model_inputs(name, B, N):
+    """``entry.build_fused_step``'s starts for the planar models (moving
+    obstacles for C3BF and DPCBF), as numpy, float64."""
+    from safe_control_tpu_torch import entry
+
+    return [t.double().numpy() for t in entry.build_fused_step(B, model_name=name, horizon=N,
+                                                               device="cpu")[1]]
+
+
+@pytest.mark.parametrize("name", NEW_FUSED)
+def test_new_model_reference_f64_matches_jax_solve_f64(name):
+    cfg = jmpc.MPCConfig(horizon=6, num_obs=5)
+    inputs = new_model_inputs(name, 3, 6)
+    u_ref, viol_ref, xs_ref = jax_solve(name, make_spec(name), inputs, cfg, jnp.float64)
+    got = torch_fused(name, inputs, cfg, dtype=torch.float64,
+                      fn=tfused.solve_fused_batch_reference)
+    assert np.isfinite(u_ref).all()
+    assert np.abs(got.u.numpy() - u_ref).max() <= 1e-6
+    assert np.abs(got.viol.numpy() - viol_ref).max() <= 1e-6
+    assert np.abs(got.xs.numpy() - xs_ref).max() <= 1e-6
+
+
+@pytest.mark.parametrize("name", NEW_FUSED)
+def test_new_model_reference_matches_jax_fused_kernel(name):
+    cfg = jmpc.MPCConfig(horizon=4, num_obs=5, outer_iters=2, newton_iters=1)
+    inputs = [a.astype(np.float32) for a in new_model_inputs(name, 2, 4)]
+    want = jfused.solve_fused_batch(name, make_spec(name), *(jnp.asarray(a) for a in inputs),
+                                    DT, cfg, interpret=True)
+    got = torch_fused(name, inputs, cfg)
+    assert np.abs(got.u.numpy() - np.asarray(want.u)).max() < 2e-3
+    assert np.abs(got.xs.numpy() - np.asarray(want.xs)).max() < 2e-3
+    np.testing.assert_allclose(got.viol.numpy(), np.asarray(want.viol), atol=2e-3)
+
+
+def test_manipulator_fused_solve_has_no_weights_in_either_package():
+    cfg = jmpc.MPCConfig(horizon=4, num_obs=5)
+    assert jfused.fused_available("Manipulator2D", cfg)
+    assert tfused.fused_available("Manipulator2D", interop.config_from_jax(cfg))
+    z = [np.zeros((1, 3)), np.zeros((1, 3)), np.zeros((1, 5, 7)), np.zeros((1, 3)),
+         np.zeros((1, 4, 3))]
+    with pytest.raises(KeyError):
+        jfused.solve_fused_batch("Manipulator2D", make_spec("Manipulator2D"),
+                                 *(jnp.asarray(a, jnp.float32) for a in z), DT, cfg,
+                                 interpret=True)
+    with pytest.raises(KeyError):
+        torch_fused("Manipulator2D", z, cfg)

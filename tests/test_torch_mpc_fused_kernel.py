@@ -20,6 +20,16 @@ float32 inputs with the full 8x3 budget:
   from the C library on the CPU and from PyTorch's own kernels in the plain
   version; whether the bits agree is printed.
 
+A build with ``cuda_on_cpu``'s IEEE math (sinf, cosf, expf and atan2f the
+float64 functions rounded once, the plain version patched alike) is bit for
+bit the plain version at every other instantiation: DynamicUnicycle2D N=8,
+VTOL2D N=16 (B=16, the constraint-stressed starts), and at N=10
+Unicycle2D, KinematicBicycle2D, its C3BF and DPCBF variants (moving
+obstacles), Quad2D and Manipulator2D (unit cost weights: the package has
+none for it); and on the two edge cases of the bicycles: a speed at v_max
+with a = 0 (the clip's tie) and a robot at rest, whose C3BF / DPCBF
+solution is NaN in the plain version and in the kernel alike.
+
 A tile of H summed in another order, or an entry mirrored to the wrong
 place, moves the Quad3D solution by far more than a bit.  The obstacles of
 the bit-for-bit cases are circles: a superellipsoid's ``powf`` would round
@@ -56,18 +66,29 @@ U_TOL = 5e-3  # chip_smoke.py's phase 10 envelope
 VIOL_TOL = 1e-3
 
 
-@pytest.fixture(scope="module")
-def cpu_lib(tmp_path_factory):
-    """``csrc/mpc_fused_kernel.cu`` built for the CPU under the block emulation."""
+def _build(tmp_path_factory, ieee_math):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the CUDA source for the CPU")
-    lib = cuda_on_cpu.build(CSRC / "mpc_fused_kernel.cu", tmp_path_factory.mktemp("fused_cpu"))
+    lib = cuda_on_cpu.build(CSRC / "mpc_fused_kernel.cu", tmp_path_factory.mktemp("fused_cpu"),
+                            ieee_math=ieee_math)
     lib.mpc_fused_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.mpc_fused_launch.restype = ctypes.c_int
     lib.mpc_fused_shared_bytes.argtypes = [ctypes.c_int] * 5
     lib.mpc_fused_shared_bytes.restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def cpu_lib(tmp_path_factory):
+    """``csrc/mpc_fused_kernel.cu`` built for the CPU under the block emulation."""
+    return _build(tmp_path_factory, ieee_math=False)
+
+
+@pytest.fixture(scope="module")
+def ieee_lib(tmp_path_factory):
+    """The same source built with ``cuda_on_cpu``'s IEEE math."""
+    return _build(tmp_path_factory, ieee_math=True)
 
 
 def launch(lib, model_name, spec, args, cfg):
@@ -177,14 +198,15 @@ def test_shared_memory_layout(cpu_lib):
     """Jr and Jc share their space with L and the line search's arrays: at
     Quad3D N=10 five blocks fit an SM's 228 KB (1 KB of it reserved a
     block), at VTOL2D N=16 two; the first port's layout took 58,232 and
-    136,996 bytes."""
+    136,996 bytes.  An obstacle takes 12 floats (the moving circle's
+    velocity and r + radius among them)."""
     sm_bytes, reserved = 233_472, 1_024
     sizes = {}
     for model_name, N in ((QUAD_3D, 10), (VTOL_2D, 16)):
         spec, cfg = make_spec(model_name), mpc_cbf.MPCConfig(horizon=N, num_obs=5)
         sizes[model_name] = cpu_lib.mpc_fused_shared_bytes(
             *mf._shape_args(model_name, spec, entry.DT, cfg))
-    assert sizes == {QUAD_3D: 44_872, VTOL_2D: 111_012}
+    assert sizes == {QUAD_3D: 44_932, VTOL_2D: 111_072}
     assert sm_bytes // (sizes[QUAD_3D] + reserved) == 5
     assert sm_bytes // (sizes[VTOL_2D] + reserved) == 2
     assert cpu_lib.mpc_fused_threads() == 128
@@ -202,3 +224,60 @@ def test_parameter_block_is_made_once_per_values_and_device(monkeypatch):
     mf._device_params([0.0], cpu)  # a third: the oldest goes
     assert list(mf._DEVICE_PARAMS) == [((1.0, 3.5), cpu), ((0.0,), cpu)]
     assert mf._device_params([1.0, 2.5], cpu) is not a
+
+
+def _same(a, b):
+    """Equal bits, NaN where NaN."""
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=7.0), torch.nan_to_num(b, nan=7.0))
+
+
+@pytest.mark.parametrize("model_name,N", [
+    (DYNAMIC_UNICYCLE_2D, 8),
+    (VTOL_2D, 16),
+    ("Unicycle2D", 10),
+    ("KinematicBicycle2D", 10),
+    ("KinematicBicycle2D_C3BF", 10),
+    ("KinematicBicycle2D_DPCBF", 10),
+    ("Quad2D", 10),
+    ("Manipulator2D", 10),
+])
+def test_cuda_source_with_ieee_math_is_bit_identical_to_plain_version(ieee_lib, monkeypatch,
+                                                                      model_name, N):
+    cuda_on_cpu.ieee_math(monkeypatch)
+    monkeypatch.setitem(mpc_cbf._WEIGHTS, "Manipulator2D", ([1.0] * 3, [0.5] * 3))
+    spec = make_spec(model_name)
+    cfg = mpc_cbf.MPCConfig(horizon=N, num_obs=5)
+    if model_name == DYNAMIC_UNICYCLE_2D:
+        spec = make_spec(model_name, a_max=1.0, w_max=0.5)
+        args = entry.build_step(3, device="cpu")[1]
+    elif model_name == VTOL_2D:
+        args = vtol_problems(16)
+    else:
+        args = entry.build_fused_step(3, model_name=model_name, horizon=N, device="cpu")[1]
+    U, xs, viol = launch(ieee_lib, model_name, spec, args, cfg)
+    plain = mf.solve_fused_batch_reference(model_name, spec, *args, entry.DT, cfg)
+    assert torch.isfinite(plain.U).all() and (plain.U != args[4]).any()
+    assert torch.equal(U, plain.U)
+    assert torch.equal(xs, plain.xs)
+    assert torch.equal(viol, plain.viol)
+
+
+@pytest.mark.parametrize("model_name", ["KinematicBicycle2D", "KinematicBicycle2D_C3BF",
+                                        "KinematicBicycle2D_DPCBF"])
+def test_cuda_source_on_bicycle_edge_cases_is_bit_identical(ieee_lib, monkeypatch, model_name):
+    """Robot 0 cruises at v_max with a cold warm start (a = 0: the speed
+    clip's tie), robot 1 is at rest (C3BF / DPCBF: v_rel = 0 against the
+    static dummies, NaN in the plain version)."""
+    cuda_on_cpu.ieee_math(monkeypatch)
+    spec = make_spec(model_name)
+    cfg = mpc_cbf.MPCConfig(horizon=6, num_obs=5)
+    args = list(entry.build_fused_step(3, model_name=model_name, horizon=6, device="cpu")[1])
+    args[0] = args[0].clone()
+    args[0][0, 3] = spec.v_max
+    args[0][1, 3] = 0.0
+    U, xs, viol = launch(ieee_lib, model_name, spec, args, cfg)
+    plain = mf.solve_fused_batch_reference(model_name, spec, *args, entry.DT, cfg)
+    assert _same(U, plain.U) and _same(xs, plain.xs) and _same(viol, plain.viol)
+    nan_rows = torch.isnan(plain.U).flatten(1).any(1).tolist()
+    assert nan_rows == [False, model_name != "KinematicBicycle2D", False]

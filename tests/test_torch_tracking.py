@@ -25,7 +25,13 @@ JAX ``init_state`` read across with ``interop.tracker_state_from_numpy``):
   codes, states within 2e-3;
 - the freeze of terminal robots inside a mixed batch;
 - ``init_state`` against JAX's, ``TrackerConfig``'s validation errors
-  (``tests/test_controller_dispatch.py``), and models not yet ported.
+  (``tests/test_controller_dispatch.py``), and models not yet ported;
+- the dynamic-obstacle scenario of ``tests/test_dynamic_env_e2e.py``
+  (KinematicBicycle2D with the DPCBF or C3BF barrier through the CBF-QP,
+  8 moving obstacles): two steps of ``run_dynamic`` at B=8 against
+  ``jax.vmap`` of JAX's, u and x within 2e-3, the same codes, the same
+  obstacles; and one ``optimal_decay_mpc_cbf`` step (DynamicUnicycle2D,
+  N=4, the cut budget) within 5e-3, its warm start of width m + 2 too.
 """
 
 import dataclasses
@@ -39,6 +45,8 @@ import torch
 from safe_control_tpu.core.spec import (
     DOUBLE_INTEGRATOR_2D,
     DYNAMIC_UNICYCLE_2D,
+    KINEMATIC_BICYCLE_2D_C3BF,
+    KINEMATIC_BICYCLE_2D_DPCBF,
     QUAD_3D,
     SINGLE_INTEGRATOR_2D,
     VTOL_2D,
@@ -341,19 +349,74 @@ def test_tracker_config_validation():
     assert cfg.mpc.optimal_decay and cfg.uses_mpc
     jcfg = jt.TrackerConfig(model_name=DYNAMIC_UNICYCLE_2D, pos_controller="optimal_decay_mpc_cbf")
     assert interop.tracker_config_from_jax(jcfg) == cfg
-    # the optimal-decay MPC is not ported yet
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tt.init_state(cfg, interop.spec_from_jax(make_spec(DYNAMIC_UNICYCLE_2D)),
-                      torch.zeros(4), device="cpu")
+    # the optimal-decay MPC's state carries the two decay multipliers a stage
+    tst = tt.init_state(cfg, interop.spec_from_jax(make_spec(DYNAMIC_UNICYCLE_2D)),
+                        torch.zeros(4), device="cpu")
+    jst = jt.init_state(jcfg, make_spec(DYNAMIC_UNICYCLE_2D), jnp.zeros(4))
+    assert tst.mpc.U.shape == (1,) + jst.mpc.U.shape == (1, 10, 4)
+    assert np.array_equal(tst.mpc.U[0].numpy(), np.asarray(jst.mpc.U))
     assert [f.name for f in dataclasses.fields(tt.TrackerConfig)] == \
         [f.name for f in dataclasses.fields(jt.TrackerConfig)]
 
 
-@pytest.mark.parametrize("name", ["Unicycle2D", "KinematicBicycle2D", "Quad2D", "Manipulator2D"])
+@pytest.mark.parametrize("name", ["DynamicBicycle2D", "DriftingCar"])
 def test_models_not_yet_ported_raise(name):
     cfg = tt.TrackerConfig(model_name=name)
     with pytest.raises(ValueError, match="not yet ported"):
         tt.init_state(cfg, interop.spec_from_jax(make_spec(name)), torch.zeros(3), device="cpu")
+
+
+# The scenario of tests/test_dynamic_env_e2e.py: 8 obstacles moving at
+# (-0.5, +-0.5), two waypoints across them.
+DYN_BASE = np.array([[8.0, 9.0, 0.5], [10.0, 4.0, 0.5], [12.0, 5.0, 0.5], [14.0, 9.0, 0.5],
+                     [16.0, 6.0, 0.5], [18.0, 14.0, 0.5], [20.0, 4.0, 0.5], [22.0, 12.0, 0.5]])
+DYN_VELS = np.array([[-0.5, 0.5] if i % 2 == 0 else [-0.5, -0.5] for i in range(8)])
+DYN_OBS = np.hstack([DYN_BASE, DYN_VELS, np.zeros((8, 2))])
+DYN_WAYPOINTS = np.array([[1.0, 7.5], [20.0, 7.5]])
+
+
+@pytest.mark.parametrize("name", [KINEMATIC_BICYCLE_2D_DPCBF, KINEMATIC_BICYCLE_2D_C3BF])
+def test_dynamic_env_run_matches_jax(name):
+    """B=8 bicycles spread around the scenario's start (some close to the
+    obstacles, so that their rows bind), two steps of ``run_dynamic``."""
+    spec = make_spec(name, a_max=5.0, radius=0.3)
+    cfg = jt.TrackerConfig(model_name=name, pos_controller="cbf_qp", dt=0.05, num_obs=8)
+    rng = np.random.default_rng(3)
+    x0 = np.zeros((B, 4))
+    x0[:, 0] = rng.uniform(1.0, 9.0, B)
+    x0[:, 1] = rng.uniform(5.5, 9.5, B)
+    x0[:, 2] = rng.uniform(-0.5, 0.5, B)
+    x0[:, 3] = rng.uniform(0.5, 2.0, B)
+    st = jax.vmap(lambda x: jt.init_state(cfg, spec, x, 0.0, first_goal=DYN_WAYPOINTS[0]))(
+        jnp.asarray(x0, jnp.float32))
+    obs = np.asarray(jpad(jnp.asarray(DYN_OBS, jnp.float32), 8))
+    run = jax.jit(jax.vmap(lambda s: jt.run_dynamic(
+        cfg, spec, s, jnp.asarray(DYN_WAYPOINTS, jnp.float32), jnp.asarray(2), jnp.asarray(obs),
+        n_steps=2, y_range=(0.0, 15.0))))
+    want_final, want_obs, want = run(st)
+    final, obs_final, traj = tt.run_dynamic(
+        interop.tracker_config_from_jax(cfg), interop.spec_from_jax(spec),
+        interop.tracker_state_from_numpy(st), _t(DYN_WAYPOINTS), 2, _t(obs), 2,
+        y_range=(0.0, 15.0))
+    assert np.array_equal(traj["ret"].numpy(), np.asarray(want["ret"]))
+    np.testing.assert_allclose(traj["u"].numpy(), np.asarray(want["u"]), atol=2e-3)
+    np.testing.assert_allclose(traj["x"].numpy(), np.asarray(want["x"]), atol=2e-3)
+    np.testing.assert_allclose(obs_final.numpy(), np.asarray(want_obs)[0], atol=1e-6)
+    assert np.array_equal(final.mode.numpy(), np.asarray(want_final.mode))
+    assert (traj["ret"].numpy() == tt.RET_OK).any()
+
+
+def test_optimal_decay_mpc_step_matches_jax():
+    mpc = jmpc.MPCConfig(horizon=4, **SMALL_MPC)
+    cfg, spec, x0, wps = make_case(DYNAMIC_UNICYCLE_2D, pos_controller="optimal_decay_mpc_cbf",
+                                   mpc=mpc)
+    assert cfg.mpc.optimal_decay
+    st = jax_init(cfg, spec, x0, wps)
+    want = jax_stepper(cfg, spec, wps, KNOWN)(st)
+    got = torch_step(cfg, spec, st, wps, KNOWN)
+    assert_step_matches(got, want, 5e-3)
+    assert got.state.mpc.U.shape == (B, 4, 4)
+    np.testing.assert_allclose(got.state.mpc.U.numpy(), np.asarray(want.state.mpc.U), atol=5e-3)
 
 
 def test_dynamic_obstacles_match_jax():
