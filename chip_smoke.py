@@ -127,6 +127,32 @@ Run from the root of a checkout:  python3 chip_smoke.py
     VTOL2D N=30 (M=120) for one robot, 5 warm-started steps, ms a step
     beside the 50 ms period.
 
+20. B3's DynamicBicycle2D and DriftingCar instantiations (unit cost weights:
+    neither model has MPC weights in either package): each one's build
+    report, each against its plain version at N=10 on
+    ``entry.build_fused_step``'s starts at B=256 (cold and warm) and
+    B=4096, bit-identical (gated); at B=4096 the launch time, operation
+    count, bound and share.
+21. The Monte Carlo DPCBF sweep at ``examples/monte_carlo_sweep.py``'s
+    defaults (1024 scenarios, 400 steps, 8 moving obstacles, the CBF-QP at
+    400 iterations) through ``parallel.monte_carlo``: one B2 launch a step
+    (gated), the success and collision rates, the spread of min h (each
+    scenario's least clearance), scenarios/s, ms a step and B2's share, the
+    first 64 scenarios' first 20 controls against B2's plain version.
+22. MPCC (``solvers/mpcc.py``, N=30, M=90, the general AL-GN solve): one
+    float64 solve at a 3x2 budget on the card and on the CPU (|du| <= 1e-6)
+    and one float32 solve at the full 12x4 budget, eager, timed.
+23. The drift scenario of ``tests/drift_scenario_common.py`` (gatekeeper,
+    lane-change backup, two moving cars, 160 steps) through
+    ``sim.drift_sim.DriftingCarSimulator``'s captured CUDA graph: no
+    collision and x_final[0] > 40; capture seconds, ms a replayed step, an
+    eager step, the graph's node count; the first replayed step against an
+    eager step (within 1e-6); then 20 replayed steps of the backup-CBF
+    configuration (finite, no collision).
+
+Phase 12's general-solve chains (``CHAIN_GENERAL``) and phase 19d's RTI
+steps (``RTI_STEPS``) run at a cut depth, 2 each, to leave room for these.
+
 Every time is printed beside the card's name and power limit, and each
 phase's wall seconds from phase 13 on.  Prints one JSON line of per-kernel
 numbers (with each kernel's bound and launches a step), then, as the last
@@ -156,7 +182,8 @@ QP_X_TOL = 1e-3  # QP kernel vs its plain version at the main path's shapes
 QP_WIDE_TOL = 2e-3  # at m=153, and against the general solve_qp (JAX's envelope)
 QP_U_TOL = 1e-3  # CBF-QP path: first 64 robots vs the plain version
 CHAIN = 25  # warm-started B=1 solves timed for the single-robot latency
-CHAIN_GENERAL = 5  # the same through the general solve (host-bound, seconds a solve)
+CHAIN_GENERAL = 2  # the same through the general solve (host-bound, seconds a solve)
+RTI_STEPS = 2  # phase 19d's warm-started VTOL2D N=30 RTI steps (the general solve)
 FLEET = 4096  # robots of the tracking fleet (phase 15)
 FLEET_DI_STEPS = 2000  # the DI scenario's 100 s at dt 0.05
 FLEET_DU_STEPS = 50
@@ -286,6 +313,13 @@ NEW_B3_OPS = {
     "Unicycle2D": (15, 6), "KinematicBicycle2D": (25, 6), "KinematicBicycle2D_C3BF": (25, 29),
     "KinematicBicycle2D_DPCBF": (25, 42), "Quad2D": (31, 6), "Manipulator2D": (6, 8),
 }
+# The drift models (mpc_fused_models.h): DynamicBicycle2D's step 104 (the
+# slip angles 13, the drive force 3, each axle's Fiala force 24 with tan,
+# atan, the square root and two reciprocals, the rates 25 with their six
+# sines and cosines, the Euler update 10; the clamp free) and its barrier
+# at a constant position 2 + a circle 6; DriftingCar's step 120 (the body's
+# and the pose's 16) and a circle 6.
+DRIFT_B3_OPS = {"DynamicBicycle2D": (104, 8), "DriftingCar": (120, 6)}
 
 
 def bound(flops, nbytes):
@@ -454,13 +488,14 @@ def single_robot(dev, card, phase, robot_spec, pos_controller, x0, tf, counter):
     return len(rets), ms
 
 
-def replay(cfg, spec, st0, traj, args_at, qp):
+def replay(cfg, spec, st0, traj, args_at, qp, per_robot_obs=False):
     """A fleet run's first steps again, one at a time, from ``st0``:
     ``tracking.step(cfg, spec, state, *args_at(i))`` for step i.  Returns the
     kernel's ms a step (CUDA events around B2's or B3's launch), whether the
     states equal the run's ``traj``, and for the first N_GENERAL robots each
     step's max |du| against the same step with the kernel's plain version
-    bound in its place."""
+    bound in its place (``per_robot_obs``: the obstacles, the third
+    argument, are per robot and are cut to those robots too)."""
     from safe_control_tpu_torch.sim import tracking
     from safe_control_tpu_torch.solvers import mpc_fused as mf
     from safe_control_tpu_torch.solvers import qp_kernel as qpk
@@ -495,8 +530,11 @@ def replay(cfg, spec, st0, traj, args_at, qp):
     bound_fn = getattr(counter, plain_name)
     setattr(counter, plain_name, getattr(counter, plain_name + "_reference"))
     try:
-        dev_plain = [(tracking.step(cfg, spec, sti, *args_at(i)).u - traj["u"][:k, i]).abs().max()
-                     .item() for i, sti in enumerate(states)]
+        def cut(args):
+            return (*args[:2], args[2][:k], *args[3:]) if per_robot_obs else args
+
+        dev_plain = [(tracking.step(cfg, spec, sti, *cut(args_at(i))).u - traj["u"][:k, i])
+                     .abs().max().item() for i, sti in enumerate(states)]
         torch.cuda.synchronize()
     finally:
         setattr(counter, plain_name, bound_fn)
@@ -593,25 +631,31 @@ def fleet(dev, card, pos_controller, n_steps):
 
 class UnitWeights:
     """The JAX package, and so the port, has no MPC cost weights for
-    Manipulator2D (its MPC raises KeyError).  Within this context unit
-    weights stand in, so that the fused kernel's Manipulator2D
-    instantiation can be held to its plain version."""
+    Manipulator2D, DynamicBicycle2D or DriftingCar (their MPC raises
+    KeyError).  Within this context unit weights stand in, so that the
+    fused kernel's instantiations of them can be held to their plain
+    versions."""
+
+    UNIT = {"Manipulator2D": ([1.0] * 3, [0.5] * 3), "DynamicBicycle2D": ([1.0] * 5, [0.5] * 2),
+            "DriftingCar": ([1.0] * 8, [0.5] * 2)}
 
     def __enter__(self):
         from safe_control_tpu_torch.solvers import mpc_cbf
 
         self.weights = mpc_cbf._WEIGHTS
-        self.weights["Manipulator2D"] = ([1.0, 1.0, 1.0], [0.5, 0.5, 0.5])
+        self.weights.update(self.UNIT)
 
     def __exit__(self, *exc):
-        del self.weights["Manipulator2D"]
+        for name in self.UNIT:
+            del self.weights[name]
 
 
-def b3_pair(label, model, sp, args, cf, errs, active=None):
+def b3_pair(label, model, sp, args, cf, errs, active=None, bits=None):
     """B3 against its plain version on ``args``: gated in the kernel
-    envelope, printed, the largest difference appended to ``errs``; the
-    plain version's activation tests counted by ``active`` when given.
-    Returns the kernel's result."""
+    envelope, printed, the largest difference appended to ``errs`` (and
+    whether the bits agree to ``bits``, when given); the plain version's
+    activation tests counted by ``active`` when given.  Returns the
+    kernel's result."""
     from safe_control_tpu_torch import entry
     from safe_control_tpu_torch.solvers import mpc_fused as mf
 
@@ -629,6 +673,8 @@ def b3_pair(label, model, sp, args, cf, errs, active=None):
     same = torch.equal(kern.U, plain.U) and torch.equal(kern.xs, plain.xs) and \
         torch.equal(kern.viol, plain.viol)
     errs.append(max(du_, dxs, dv))
+    if bits is not None:
+        bits.append(same)
     print(f"phase {label} fused kernel vs plain ({model} N={cf.horizon}, B={args[0].shape[0]}): "
           f"max|du| {du_:.3e}, max|dxs| {dxs:.3e}, max|dviol| {dv:.3e}, bit-identical {same}, "
           f"finite {bool(torch.isfinite(kern.U).all())}, "
@@ -943,7 +989,7 @@ def mpc_variants(dev, card):
 
     vmodel, vspec = get_model(vt), make_spec(vt)
     times = []
-    for _ in range(STEPS):
+    for _ in range(RTI_STEPS):
         t0 = time.perf_counter()
         res = mpc_cbf.solve_dispatch(vt, vspec, x, gl, ob, up, st, entry.DT, rti)
         x = vmodel.step(x, res.u, vspec, entry.DT)
@@ -952,11 +998,288 @@ def mpc_variants(dev, card):
         up, st = res.u, res.state
     rti_ok = bool(torch.isfinite(x).all())
     print(f"phase 19d [{card}] MPCConfig.rti (2x2), VTOL2D N=30 (M=120, the general solve), "
-          f"one robot, {STEPS} warm-started steps: " + ", ".join(f"{t:.1f}" for t in times)
+          f"one robot, {RTI_STEPS} warm-started steps: " + ", ".join(f"{t:.1f}" for t in times)
           + f" ms a step (host clock) against the 50 ms period, finite {rti_ok}; host-bound: "
           f"thousands of small launches a solve; phase {time.perf_counter() - t_phase:.1f} s")
     if not rti_ok:
         raise SystemExit("phase 19d failed: the RTI solve diverged")
+
+
+# The drift scenario of tests/drift_scenario_common.py: a five-lane straight
+# track, the ego car in lane 1 at 10 m/s, the backup lane 3, two obstacle
+# cars moving ahead; the VehicleConfig of the reference's drift example.
+DRIFT_DT = 0.05
+DRIFT_LANE_W, DRIFT_LANES, DRIFT_TRACK = 4.0, 5, 300.0
+DRIFT_EGO, DRIFT_MIDDLE, DRIFT_BACKUP = 1, 2, 3
+DRIFT_TF = 8.0  # 160 steps
+DRIFT_BACKUPCBF_STEPS = 20
+SWEEP_BATCH, SWEEP_STEPS = 1024, 400  # examples/monte_carlo_sweep.py's defaults
+
+
+def drift_spec():
+    import math
+
+    from safe_control_tpu_torch.core.spec import DRIFTING_CAR, make_spec
+
+    return make_spec(
+        DRIFTING_CAR, a_cg=1.4, b_cg=1.4, wheel_base=2.8, body_length=4.5, body_width=2.0,
+        radius=1.2, mass=2500.0, izz=5000.0, cc_f=80000.0, cc_r=100000.0, mu=1.0, r_w=0.35,
+        gamma_stab=0.95, delta_max=math.radians(20), delta_dot_max=math.radians(25),
+        tau_max=4000.0, tau_dot_max=8000.0, v_max=20.0, v_min=0.0, r_max=2.0,
+        beta_max=math.radians(45))
+
+
+def drift_scene(dev):
+    """(env, path, x0, backup lane y) of the drift scenario on ``dev``."""
+    import numpy as np
+
+    from safe_control_tpu_torch.envs.drifting_env import DriftingEnv
+    from safe_control_tpu_torch.solvers import mpcc
+
+    env = DriftingEnv("straight", track_width=DRIFT_LANE_W * DRIFT_LANES,
+                      track_length=DRIFT_TRACK, num_lanes=DRIFT_LANES, device=dev)
+    ego_y = env.get_lane_center(DRIFT_EGO)
+    env.add_dynamic_obstacle_car(50.0, env.get_lane_center(DRIFT_MIDDLE), 0.0, 2.0, 0.0,
+                                 radius=1.0)
+    env.add_dynamic_obstacle_car(35.0, 4.0, 0.0, 0.75, 0.0, radius=1.0)
+    sx = np.linspace(0.0, DRIFT_TRACK, 601)
+    path = mpcc.make_path(sx, np.full_like(sx, ego_y), device=dev)
+    x0 = np.array([1.0, ego_y, 0.0, 0.0, 0.0, 10.0, 0.0, 0.0])
+    return env, path, x0, env.get_lane_center(DRIFT_BACKUP)
+
+
+def drift_b3_models(dev, card, b3_report):
+    """Phase 20: B3's DynamicBicycle2D and DriftingCar instantiations (unit
+    cost weights) against their plain versions, bits printed and gated, and
+    timed at B=4096.  Returns (JSON shapes, max difference, all bits equal)."""
+    from safe_control_tpu_torch import entry
+    from safe_control_tpu_torch.core.spec import make_spec
+    from safe_control_tpu_torch.dynamics import get_model
+    from safe_control_tpu_torch.solvers import mpc_cbf
+    from safe_control_tpu_torch.solvers import mpc_fused as mf
+
+    t_phase = time.perf_counter()
+    errs, bits, shapes = [], [], []
+    cf = mpc_cbf.MPCConfig(horizon=10, num_obs=5)
+    with UnitWeights():
+        for model, (step_ops, h_ops) in DRIFT_B3_OPS.items():
+            print(f"phase 20 build [{card}] {b3_report[model]}")
+            sp = make_spec(model)
+            fstep, args = entry.build_fused_step(256, model_name=model, horizon=10, device=dev)
+            b3_pair("20 (cold)", model, sp, args, cf, errs, bits=bits)
+            x1, u1, U1 = fstep(*args)
+            b3_pair("20 (warm)", model, sp, (x1, args[1], args[2], u1, U1), cf, errs, bits=bits)
+            big = entry.build_fused_step(BATCH, model_name=model, horizon=10, device=dev)[1]
+            nc = mpc_cbf._num_constraints(get_model(model), cf)
+            active = ActiveRows(lambda t, nc=nc: t.dim() == 2 and t.shape[-1] == nc)
+            b3_pair("20 (B=4096)", model, sp, big, cf, errs, active=active, bits=bits)
+            run = lambda: mf.solve_fused_batch(model, sp, *big, entry.DT, cf)
+            ms = sync_time(run, 3)
+            mdl = get_model(model)
+            n, m, M = mdl.N_STATES, mdl.N_CONTROLS, 10 * mdl.N_CONTROLS
+            ops = b3_flops(BATCH, n, m, 10, 5, nc, step_ops, active.total(), h_ops, mdl.REL_DEG)
+            bnd, by = bound(ops, BATCH * (2 * n + 35 + m + 2 * M + 11 * n + 1) * 4)
+            print(f"phase 20 [{card}] {model} N=10 B={BATCH}: fused kernel {ms:.4f} ms a launch, "
+                  f"{ops:.4e} operations ({active.total()} active constraint rows), bound "
+                  f"{bnd:.4f} ms by {by}, {100 * bnd / ms:.2f}% of it reached")
+            shapes.append({"shape": f"{model} N=10 B={BATCH}", "ms": ms, "bound_ms": bnd,
+                           "bound_by": by, "max_abs_err": max(errs[-3:]),
+                           "bit_identical": all(bits[-3:])})
+    print(f"phase 20 [{card}] the drift instantiations bit-identical to their plain versions "
+          f"in every pair: {all(bits)}; phase {time.perf_counter() - t_phase:.1f} s")
+    if not all(bits):
+        raise SystemExit("phase 20 failed: a drift instantiation is not bit-identical to its "
+                         "plain version")
+    return shapes, max(errs), all(bits)
+
+
+def monte_carlo_sweep(dev, card):
+    """Phase 21: the Monte Carlo DPCBF sweep at examples/monte_carlo_sweep.py's
+    defaults (B=1024 scenarios, 400 steps, 8 moving obstacles, the CBF-QP at
+    400 iterations) through ``parallel.monte_carlo``: one B2 launch a step,
+    the first 64 scenarios' first 20 controls within QP_U_TOL of the steps
+    replayed with B2's plain version.  Returns (launches, ms a step, B2 ms a
+    step, max |du|, the B2 bound, its kind)."""
+    import numpy as np
+
+    from safe_control_tpu_torch.core.spec import make_spec
+    from safe_control_tpu_torch.parallel import monte_carlo as mc
+    from safe_control_tpu_torch.sim import tracking
+    from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+    t_phase = time.perf_counter()
+    model = "KinematicBicycle2D_DPCBF"
+    spec = make_spec(model, a_max=5.0, radius=0.3)
+    cfg = tracking.TrackerConfig(model_name=model, pos_controller="cbf_qp", dt=0.05, num_obs=8,
+                                 qp_iters=400)
+    wps = torch.tensor(DYN_WAYPOINTS, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st0 = mc.dpcbf_sweep_init(cfg, spec, gen, SWEEP_BATCH, wps, device=dev)
+    tracking.step(cfg, spec, st0.tracker, wps, 2, st0.obs)  # warm-up
+    torch.cuda.synchronize()
+    qpk.LAUNCH_COUNT = 0
+    t0 = time.perf_counter()
+    final, traj = mc.run_sweep_chunk(cfg, spec, st0, wps, 2, SWEEP_STEPS, with_trajectory=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = qpk.LAUNCH_COUNT
+    succ, coll = (float(v) for v in mc.sweep_stats(final))
+    # min h: the least clearance |p - o| - (r_o + radius) of each scenario
+    # over its steps and obstacles, from the stacked trajectory
+    d = traj["x"][:, :, None, :2] - traj["obs_xy"]
+    clear = torch.sqrt((d * d).sum(-1)) - (st0.obs[:, None, :, 2] + spec.radius)
+    min_h = clear.amin(dim=(1, 2)).cpu().numpy()
+    q = np.percentile(min_h, [0, 5, 50, 95, 100])
+    obs_seq = [st0.obs]
+    for _ in range(REPLAY["cbf_qp"]):
+        obs_seq.append(tracking.step_dynamic_obstacles(obs_seq[-1], cfg.dt, y_range=(0.0, 15.0)))
+    kernel_ms, same_x, dev_plain = replay(cfg, spec, st0.tracker, traj,
+                                          lambda i: (wps, 2, obs_seq[i]), True,
+                                          per_robot_obs=True)
+    step_ms = wall / SWEEP_STEPS * 1e3
+    qn, qm = 2, cfg.num_obs + 2
+    b2_bound, b2_by = bound(b2_flops(SWEEP_BATCH, qn, qm, cfg.qp_iters),
+                            SWEEP_BATCH * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+    print(f"phase 21 [{card}] Monte Carlo DPCBF sweep, {SWEEP_BATCH} scenarios x {SWEEP_STEPS} "
+          f"steps (parallel.monte_carlo.run_sweep_chunk): QP kernel launches {launches} "
+          f"({launches / SWEEP_STEPS:.3f} a step); success {100 * succ:.2f}%, collision "
+          f"{100 * coll:.2f}%; min h (least clearance, m) min {q[0]:.4f}, p5 {q[1]:.4f}, "
+          f"median {q[2]:.4f}, p95 {q[3]:.4f}, max {q[4]:.4f}; {SWEEP_BATCH / wall:.1f} "
+          f"scenarios/s ({SWEEP_BATCH * SWEEP_STEPS / wall:.1f} scenario-steps/s), "
+          f"{step_ms:.3f} ms a step, B2 {kernel_ms:.4f} ms a step (bound {b2_bound:.4f} ms by "
+          f"{b2_by}, {100 * b2_bound / kernel_ms:.2f}% of it reached; "
+          f"{100 * kernel_ms / step_ms:.1f}% of the step); replayed states equal the run's "
+          f"{same_x}; per-step max|du| of {N_GENERAL} scenarios against the plain version: "
+          + ", ".join(f"{v:.3e}" for v in dev_plain)
+          + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    if launches != SWEEP_STEPS:
+        raise SystemExit("phase 21 failed: the sweep did not make one B2 launch a step")
+    if not same_x or max(dev_plain) >= QP_U_TOL or not np.isfinite(min_h).all():
+        raise SystemExit("phase 21 failed: the sweep disagrees with the plain version")
+    return launches, step_ms, kernel_ms, max(dev_plain), b2_bound, b2_by
+
+
+def mpcc_alone(dev, card):
+    """Phase 22: MPCC on the drift scenario's start, horizon 30 (M=90): one
+    float64 solve at a 3x2 budget on the card and on the CPU with the same
+    inputs (|du| <= 1e-6), then one float32 solve at the full 12x4 budget,
+    eager, timed."""
+    from safe_control_tpu_torch.solvers import al_gn, mpcc
+
+    t_phase = time.perf_counter()
+    spec = drift_spec()
+    _, path, x0, _ = drift_scene("cpu")
+    x8 = torch.tensor(x0, dtype=torch.float64)[None] + 0.05
+    cut = mpcc.MPCCConfig(horizon=30, v_ref=10.0, al=al_gn.ALGNConfig(outer_iters=3,
+                                                                      newton_iters=2))
+    outs, secs = {}, {}
+    for where in ("cpu", dev):
+        p = mpcc.Path(*(t.to(where, torch.float64) for t in path))
+        t0 = time.perf_counter()
+        r = mpcc.solve(spec, x8.to(where), p, mpcc.init_state(cut, 1, device=where,
+                                                               dtype=torch.float64),
+                       torch.zeros((1, 2), dtype=torch.float64, device=where), DRIFT_DT, cut)
+        outs[str(where)] = r.us.cpu()
+        torch.cuda.synchronize()
+        secs[str(where)] = time.perf_counter() - t0
+    du64 = (outs["cpu"] - outs[str(dev)]).abs().max().item()
+    full = mpcc.MPCCConfig(horizon=30, v_ref=10.0)
+    p32 = mpcc.Path(*(t.to(dev) for t in path))
+    args = (spec, x8.float().to(dev), p32, mpcc.init_state(full, 1, device=dev),
+            torch.zeros((1, 2), device=dev), DRIFT_DT)
+    mpcc.solve(*args, cut)  # warm-up of the float32 launch paths at the cut budget
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r32 = mpcc.solve(*args, full)
+    torch.cuda.synchronize()
+    ms32 = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(r32.us).all())
+    print(f"phase 22 [{card}] MPCC N=30 (M=90): float64 3x2 solve on the card "
+          f"{secs[str(dev)]:.2f} s and on the CPU {secs['cpu']:.2f} s, max|du| card vs CPU {du64:.3e} (gate 1e-6); "
+          f"float32 at the full 12x4 budget, eager on the card: {ms32:.1f} ms a solve (host "
+          f"clock) against the 50 ms period, finite {finite}, u {r32.u[0].tolist()}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if du64 > 1e-6 or not finite:
+        raise SystemExit("phase 22 failed: the MPCC solve on the card disagrees with the CPU")
+    return du64, ms32
+
+
+def drift_scenario(dev, card):
+    """Phase 23: the drift scenario through the captured CUDA graph of
+    ``sim.drift_sim`` (the gatekeeper with the lane-change backup, MPCC at
+    N=30 and 12x4, 160 steps): no collision and x_final[0] > 40; the first
+    replayed step against an eager step on the card (graph=False, within
+    1e-6); then the backup-CBF configuration for 20 replayed steps (finite,
+    no collision).  Returns a dict of the numbers."""
+    import numpy as np
+
+    from safe_control_tpu_torch.sim import drift_sim
+    from safe_control_tpu_torch.solvers import mpcc
+
+    t_phase = time.perf_counter()
+    spec = drift_spec()
+    env, path, x0, backup_y = drift_scene(dev)
+    mcfg = mpcc.MPCCConfig(horizon=30, v_ref=10.0)
+
+    def config(algo):
+        return drift_sim.DriftSimConfig(dt=DRIFT_DT, algo=algo, backup="lane_change",
+                                        nominal_steps=30, backup_steps=60, event_offset_steps=1,
+                                        discount_steps=5, target_velocity=10.0)
+
+    sim = drift_sim.DriftingCarSimulator(spec, env, path, x0, mcfg, config("gatekeeper"),
+                                         backup_y, device=dev)
+    t0 = time.perf_counter()
+    collided = sim.step()  # capture, then the first replay
+    first_s = time.perf_counter() - t0
+    eager = drift_sim.DriftingCarSimulator(spec, env, path, x0, mcfg, config("gatekeeper"),
+                                           backup_y, device=dev, graph=False)
+    t0 = time.perf_counter()
+    eager.step()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    dx_first = float(np.abs(sim.trajectory[0] - eager.trajectory[0]).max())
+    del eager
+    n_steps = int(round(DRIFT_TF / DRIFT_DT))
+    t0 = time.perf_counter()
+    done = 1
+    while done < n_steps and not collided:
+        collided = sim.step()
+        done += 1
+    replay_ms = (time.perf_counter() - t0) / max(done - 1, 1) * 1e3
+    xf = sim.trajectory[-1]
+    nodes = sim.graph_nodes()
+    print(f"phase 23 [{card}] drift scenario (gatekeeper, lane-change backup, two moving cars, "
+          f"MPCC N=30 12x4) through the captured CUDA graph: {done} steps, collision "
+          f"{sim.stats['collision']}, x_final {xf[:2].tolist()}, nominal steps "
+          f"{sim.stats['nominal_steps']}, backup steps {sim.stats['backup_steps']}; capture "
+          f"{sim.capture_seconds:.2f} s (warm-up included; the first step {first_s:.2f} s), "
+          f"{replay_ms:.1f} ms a replayed step (host clock, the host read included) against the "
+          f"50 ms period, an eager step on the card {eager_ms:.1f} ms; graph nodes {nodes}; "
+          f"first step replay vs eager max|dx| {dx_first:.3e}")
+    if sim.stats["collision"] or not xf[0] > 40.0:
+        raise SystemExit("phase 23 failed: the drift scenario collided or made no progress")
+    if dx_first > 1e-6:
+        raise SystemExit("phase 23 failed: the graph's first step disagrees with an eager step")
+    capture_s = sim.capture_seconds
+    del sim
+    bsim = drift_sim.DriftingCarSimulator(spec, env, path, x0, mcfg, config("backupcbf"),
+                                          backup_y, device=dev)
+    t0 = time.perf_counter()
+    bcoll = bsim.step()
+    b_first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(DRIFT_BACKUPCBF_STEPS - 1):
+        bcoll = bsim.step() or bcoll
+    b_ms = (time.perf_counter() - t0) / (DRIFT_BACKUPCBF_STEPS - 1) * 1e3
+    b_finite = bool(np.isfinite(np.asarray(bsim.trajectory)).all())
+    print(f"phase 23 [{card}] backup-CBF configuration: {DRIFT_BACKUPCBF_STEPS} replayed steps, "
+          f"collision {bcoll}, finite {b_finite}, backup steps {bsim.stats['backup_steps']}, "
+          f"min h {bsim.stats['global_min_h']:.4f}; capture {bsim.capture_seconds:.2f} s (the "
+          f"first step {b_first_s:.2f} s), {b_ms:.1f} ms a replayed step; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if bcoll or not b_finite:
+        raise SystemExit("phase 23 failed: the backup-CBF configuration collided or diverged")
+    return dict(steps=done, replay_ms=replay_ms, capture_s=capture_s,
+                eager_ms=eager_ms, dx_first=dx_first, nodes=nodes, backupcbf_ms=b_ms)
 
 
 def main() -> None:
@@ -1271,6 +1594,7 @@ def main() -> None:
               (spec, du_cfg), SINGLE_INTEGRATOR_2D: (make_spec(SINGLE_INTEGRATOR_2D), int_cfg),
               DOUBLE_INTEGRATOR_2D: (make_spec(DOUBLE_INTEGRATOR_2D), int_cfg)}
     shapes.update({model: (make_spec(model), int_cfg) for model in NEW_B3_OPS})
+    shapes.update({model: (make_spec(model), int_cfg) for model in DRIFT_B3_OPS})
     b3_report = {}
     with UnitWeights():  # to size Manipulator2D's parameter block
         for model, regs, frame in fused_ptxas(info["ptxas"]):
@@ -1282,7 +1606,8 @@ def main() -> None:
     threads = _build.load_mpc_fused_kernel().mpc_fused_threads()
     print(f"phase 9 build: mpc_fused_kernel {info['seconds']:.1f} s (cached={info['cached']}, "
           f"built beside the other two), {threads}-thread blocks; "
-          + " | ".join(v for k, v in b3_report.items() if k not in NEW_B3_OPS))
+          + " | ".join(v for k, v in b3_report.items()
+                       if k not in NEW_B3_OPS and k not in DRIFT_B3_OPS))
     if set(b3_report) != set(mf.MODEL_IDS):
         raise SystemExit("phase 9 failed: not every model has a fused kernel instantiation")
 
@@ -1456,6 +1781,12 @@ def main() -> None:
     arm_shape = manipulator_cbf_qp(dev, card)
     mpc_variants(dev, card)
 
+    # ---- phases 20-23: the drift models on B3, the sweep, MPCC, the drift car ------
+    drift_shapes, drift_err, drift_bits = drift_b3_models(dev, card, b3_report)
+    sweep = monte_carlo_sweep(dev, card)
+    mpcc_alone(dev, card)
+    drift_scenario(dev, card)
+
     print(json.dumps({"kernels": [{
         "name": "mpc_du_kernel",
         "route": "cuda",
@@ -1481,8 +1812,12 @@ def main() -> None:
         "tracking_ms_per_launch": qp_fleet[2],
         "dynamic_env_launches_per_step": dyn[0] / DYN_STEPS,
         "dynamic_env_ms_per_launch": dyn[2],
-        "shapes": [arm_shape],
-        "max_abs_err": max(qp_dx, qp_dy, arm_shape["max_abs_err"], dyn[3]),
+        "sweep_launches_per_step": sweep[0] / SWEEP_STEPS,
+        "sweep_ms_per_launch": sweep[2],
+        "shapes": [arm_shape, {"shape": f"DPCBF sweep n=2 m=10 B={SWEEP_BATCH}",
+                               "ms": sweep[2], "bound_ms": sweep[4], "bound_by": sweep[5],
+                               "max_abs_err": sweep[3]}],
+        "max_abs_err": max(qp_dx, qp_dy, arm_shape["max_abs_err"], dyn[3], sweep[3]),
         "ms": qp_ms,
         "plain_ms": qp_plain_ms,
         "bound_ms": b2_bound,
@@ -1499,8 +1834,9 @@ def main() -> None:
         "tracking_launches_per_step": du_fleet[0] / FLEET_DU_STEPS,
         "tracking_ms_per_launch": du_fleet[2],
         "dpcbf_launches_per_step": b3_new_launches / STEPS,
-        "shapes": b3_shapes,
-        "max_abs_err": max(fused_max_err, b3_new_err),
+        "shapes": b3_shapes + drift_shapes,
+        "drift_bit_identical": drift_bits,
+        "max_abs_err": max(fused_max_err, b3_new_err, drift_err),
         "ms": f_ms,
         "plain_ms": f_plain_ms,
         "bound_ms": b3_bound,

@@ -110,3 +110,22 @@ def first_true(mask):
     what ``jnp.argmax`` of a boolean array gives (the mask is cast to
     integers first)."""
     return torch.argmax(mask.to(torch.int8), dim=-1)
+
+
+_CONSTANTS: dict = {}
+_CONSTANTS_MAX = 256
+
+
+def device_constant(values, *, device=None, dtype=torch.float32) -> torch.Tensor:
+    """``torch.tensor(values)`` on ``device``, made once per values, type and
+    device and kept: a later call copies nothing from the host, so that it
+    can run inside a CUDA graph capture (the first call must come before).
+    The tensor is shared; do not write to it."""
+    key = (tuple(values) if isinstance(values, (list, tuple)) else values, dtype,
+           torch.device(device) if device is not None else None)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        if len(_CONSTANTS) >= _CONSTANTS_MAX:
+            del _CONSTANTS[next(iter(_CONSTANTS))]
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t

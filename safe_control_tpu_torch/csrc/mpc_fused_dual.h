@@ -11,9 +11,14 @@
 //   sin, cos     t * cos v, t * (-sin v)      exp     t * r
 //   atan2(y, x)  (-vy * tx + vx * ty) / (vy * vy + vx * vx)
 //   abs          t * sgn v                    pow(a, e)  t * (e * pow(v, e - 1))
+//   tan          t * (1 + r * r)              atan       t / (v * v + 1)
+//   tanh         t * fma(-r, r, 1)            sign       0
+//   where(c, a, b)  the chosen operand, value and tangent
 //   clamp        t where lo <= v <= hi, else 0 (ties pass the tangent)
 //   max_tie      t * w, w = 1 where v > c, 0.5 at v == c, else 0 (min_tie alike)
 //
+// torch.tanh's tangent is one fused multiply-add, 1 - r * r rounded once, as
+// PyTorch's tanh_backward rounds it.  sign is that of torch.sign, 0 at a NaN.
 // torch.clamp passes the whole tangent at a tie, torch.maximum / minimum
 // against a constant tensor pass half of it, as JAX's max / min / clip do.
 // A model whose PyTorch module clamps uses dclamp; one whose JAX original
@@ -81,8 +86,29 @@ __device__ __forceinline__ Dual datan2(const Dual& y, const Dual& x) {
   return Dual(atan2f(y.v, x.v), (-y.v * x.t + x.v * y.t) / (y.v * y.v + x.v * x.v));
 }
 
-// sign with sign(0) == 0, as torch.sgn on real numbers.
+// sign with sign(0) == 0, as torch.sgn on real numbers; 0 at a NaN, as torch.sign.
 __device__ __forceinline__ float sgn(float x) { return static_cast<float>((x > 0.0f) - (x < 0.0f)); }
+__device__ __forceinline__ float dsign(float a) { return sgn(a); }
+__device__ __forceinline__ Dual dsign(const Dual& a) { return Dual(sgn(a.v), 0.0f); }
+
+__device__ __forceinline__ float dtan(float a) { return tanf(a); }
+__device__ __forceinline__ Dual dtan(const Dual& a) {
+  const float r = tanf(a.v);
+  return Dual(r, a.t * (1.0f + r * r));
+}
+__device__ __forceinline__ float datan(float a) { return atanf(a); }
+__device__ __forceinline__ Dual datan(const Dual& a) {
+  return Dual(atanf(a.v), a.t / (a.v * a.v + 1.0f));
+}
+__device__ __forceinline__ float dtanh(float a) { return tanhf(a); }
+__device__ __forceinline__ Dual dtanh(const Dual& a) {
+  const float r = tanhf(a.v);
+  return Dual(r, a.t * fmaf(-r, r, 1.0f));
+}
+
+// torch.where(c, a, b) on a condition of values: the chosen operand.
+template <class T>
+__device__ __forceinline__ T select(bool c, const T& a, const T& b) { return c ? a : b; }
 __device__ __forceinline__ float dabs(float a) { return fabsf(a); }
 __device__ __forceinline__ Dual dabs(const Dual& a) { return Dual(fabsf(a.v), a.t * sgn(a.v)); }
 

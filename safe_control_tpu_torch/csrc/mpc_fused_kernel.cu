@@ -589,6 +589,8 @@ int with_model(int model, F&& f) {
     MPC_FUSED_CASE(8, KinematicBicycle2D_DPCBF)
     MPC_FUSED_CASE(9, Quad2D)
     MPC_FUSED_CASE(10, Manipulator2D)
+    MPC_FUSED_CASE(11, DynamicBicycle2D)
+    MPC_FUSED_CASE(12, DriftingCar)
     default:
       return -1;
   }
@@ -627,8 +629,8 @@ extern "C" int mpc_fused_blocks_per_sm(int model, int N, int K, int NB, int nP) 
 
 // model: 0 SingleIntegrator2D, 1 DoubleIntegrator2D, 2 DynamicUnicycle2D,
 // 3 Quad3D, 4 VTOL2D, 5 Unicycle2D, 6 KinematicBicycle2D, 7 its C3BF and
-// 8 its DPCBF variant, 9 Quad2D, 10 Manipulator2D
-// (solvers/mpc_fused.py::MODEL_IDS).  Returns a CUDA
+// 8 its DPCBF variant, 9 Quad2D, 10 Manipulator2D, 11 DynamicBicycle2D,
+// 12 DriftingCar (solvers/mpc_fused.py::MODEL_IDS).  Returns a CUDA
 // error code; -1 for an unknown model.
 extern "C" int mpc_fused_launch(int model, const void* x0, const void* goal, const void* obs,
                                 const void* uprev, const void* U0, const void* params,

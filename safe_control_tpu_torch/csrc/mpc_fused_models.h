@@ -330,4 +330,76 @@ struct Manipulator2D {
   }
 };
 
+// The Fiala lateral force of one axle: the linear (brush) branch where
+// |alpha| < alpha_sl, else the saturated one, chosen on the values (the
+// tangent is the chosen branch's).  ``Fx`` is the axle's drive force: the
+// float 0 at the front (no tangent, as a zeros tensor), a T at the rear.
+// c: -Cc, Cc^2, Cc^3, 1/Cc, (mu Fz)^2; gamma the friction-circle factor.
+template <class T, class F>
+__device__ __forceinline__ T fiala_force(const T& alpha, const float* c, float gamma, const F& Fx) {
+  const F Fy_max = dsqrt(max_tie(c[4] - gamma * (Fx * Fx), 1.0f));
+  const F alpha_sl = datan((3.0f * Fy_max) * c[3]);
+  const T tan_a = dtan(alpha);
+  const T lin = (c[0] * tan_a + (rdiv(c[1], 3.0f * Fy_max) * dabs(tan_a)) * tan_a) -
+                rdiv(c[2], 27.0f * (Fy_max * Fy_max)) * ((tan_a * tan_a) * tan_a);
+  const T sat = (-Fy_max) * dsign(alpha);
+  return select(fabsf(value_of(alpha)) < value_of(alpha_sl), lin, sat);
+}
+
+// DynamicBicycle2D: [r, beta, V, delta, tau], u = [delta_dot, tau_dot]; the
+// Fiala tyres, Euler, then the 5-way state clamp (half the tangent at a
+// tie).  Its MPC barrier acts on barrier_pos(x) = 0 x[:2], a constant.
+// mp: 0 a_cg, 1 b_cg, 2 1/izz, 3 mass, 4 1/mass, 5-9 the front axle's
+// fiala_force constants, 10-14 the rear's, 15 gamma_stab, 16 mu Fz_r,
+// 17 1/(r_w max(mu Fz_r, 1)), 18-27 the clamp's (lower, upper) pairs.
+struct DynamicBicycle2D {
+  static constexpr int n = 5, m = 2, REL_DEG = 2;
+  template <class T>
+  __device__ static void step(const T* x, const T* u, T* out, const float* mp, float dt) {
+    const T &r = x[0], &beta = x[1], &V = x[2], &delta = x[3], &tau = x[4];
+    const T V_safe = max_tie(V, (float)0.1);
+    const T cb = dcos(beta), sb = dsin(beta);
+    const T alpha_f = datan2(V * sb + mp[0] * r, V_safe * cb) - delta;
+    const T alpha_r = datan2(V * sb - mp[1] * r, V_safe * cb);
+    const float Fx_f = 0.0f;
+    const T Fx_r = mp[16] * dtanh(tau * mp[17]);
+    const T Fy_f = fiala_force(alpha_f, mp + 5, mp[15], Fx_f);
+    const T Fy_r = fiala_force(alpha_r, mp + 10, mp[15], Fx_r);
+    const T sd = dsin(delta), cd = dcos(delta);
+    const T db = delta - beta;
+    const T sdb = dsin(db), cdb = dcos(db);
+    const T r_dot = (mp[0] * (Fx_f * sd + Fy_f * cd) - mp[1] * Fy_r) * mp[2];
+    const T beta_dot = (((Fx_f * sdb + Fy_f * cdb) - Fx_r * sb) + Fy_r * cb) / (mp[3] * V_safe) - r;
+    const T V_dot = (((Fx_f * cdb - Fy_f * sdb) + Fx_r * cb) + Fy_r * sb) * mp[4];
+    const T next[5] = {r + r_dot * dt, beta + beta_dot * dt, V + V_dot * dt, delta + u[0] * dt,
+                       tau + u[1] * dt};
+    for (int i = 0; i < 5; ++i) out[i] = min_tie(max_tie(next[i], mp[18 + 2 * i]), mp[19 + 2 * i]);
+  }
+  template <class T>
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) {
+    return h_point(x[0] * 0.0f, x[1] * 0.0f, o);
+  }
+};
+
+// DriftingCar: [x, y, theta] + the DynamicBicycle2D state.  The body steps
+// first; the pose then moves with the NEXT (V, beta, r) and the CURRENT
+// theta, theta wrapped.  mp: DynamicBicycle2D's.
+struct DriftingCar {
+  static constexpr int n = 8, m = 2, REL_DEG = 1;
+  template <class T>
+  __device__ static void step(const T* x, const T* u, T* out, const float* mp, float dt) {
+    T body[5];
+    DynamicBicycle2D::step(x + 3, u, body, mp, dt);
+    const T h = x[2] + body[1];
+    out[0] = x[0] + (body[2] * dcos(h)) * dt;
+    out[1] = x[1] + (body[2] * dsin(h)) * dt;
+    out[2] = angle_normalize(x[2] + body[0] * dt);
+    for (int i = 0; i < 5; ++i) out[3 + i] = body[i];
+  }
+  template <class T>
+  __device__ static T dt_h(const T* x, const Obstacle& o, const float*) {
+    return h_point(x[0], x[1], o);
+  }
+};
+
 }  // namespace mpc_fused

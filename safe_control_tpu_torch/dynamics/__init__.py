@@ -1,14 +1,15 @@
-"""Dynamics model registry.
+"""Dynamics model registry: the JAX package's 13 models.
 
-Every model of the JAX package but DynamicBicycle2D and DriftingCar is
-ported; ``get_model`` raises a ``ValueError`` naming either of those as not
-yet ported.  Every registered model also has a CUDA instantiation of the
-fused MPC kernel (``csrc/mpc_fused_models.h``).
+``get_model`` raises a ``ValueError`` for a name it does not know.  Every
+registered model also has a CUDA instantiation of the fused MPC kernel
+(``csrc/mpc_fused_models.h``).
 """
 
 from safe_control_tpu_torch.core import spec as _spec
 from safe_control_tpu_torch.dynamics import base
 from safe_control_tpu_torch.dynamics import double_integrator2d
+from safe_control_tpu_torch.dynamics import drifting_car
+from safe_control_tpu_torch.dynamics import dynamic_bicycle2d
 from safe_control_tpu_torch.dynamics import dynamic_unicycle2d
 from safe_control_tpu_torch.dynamics import kinematic_bicycle2d
 from safe_control_tpu_torch.dynamics import kinematic_bicycle2d_c3bf
@@ -31,6 +32,8 @@ base.register(_spec.QUAD_2D, quad2d)
 base.register(_spec.QUAD_3D, quad3d)
 base.register(_spec.VTOL_2D, vtol2d)
 base.register(_spec.MANIPULATOR_2D, manipulator2d)
+base.register(_spec.DYNAMIC_BICYCLE_2D, dynamic_bicycle2d)
+base.register(_spec.DRIFTING_CAR, drifting_car)
 
 get_model = base.get_model
 MODEL_REGISTRY = base.MODEL_REGISTRY

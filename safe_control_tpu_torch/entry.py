@@ -27,6 +27,8 @@ import torch
 
 from safe_control_tpu_torch.core.spec import (
     DOUBLE_INTEGRATOR_2D,
+    DRIFTING_CAR,
+    DYNAMIC_BICYCLE_2D,
     DYNAMIC_UNICYCLE_2D,
     KINEMATIC_BICYCLE_2D,
     KINEMATIC_BICYCLE_2D_C3BF,
@@ -118,7 +120,12 @@ def build_fused_step(batch, model_name=QUAD_3D, horizon=10, num_obs=5, *, device
     x, y uniform in [0, 3] (Manipulator2D: its joint angles in [-1, 1]),
     headings in [-1, 1], the bicycles' speeds in [0.5, 2] and Quad2D's
     pitch in [-0.2, 0.2] and velocities in [-0.5, 0.5]; goal (5, 2);
-    ``FUSED_OBSTACLES`` (``MOVING_OBSTACLES`` for C3BF and DPCBF).
+    ``FUSED_OBSTACLES`` (``MOVING_OBSTACLES`` for C3BF and DPCBF).  The drift
+    models (no MPC weights: their ``control_step`` raises ``KeyError`` as
+    the JAX package's MPC does) start with yaw rate in [-0.2, 0.2], slip
+    and steering in [-0.1, 0.1], speed in [5, 10] and torque in [0, 1000]
+    (DriftingCar: x in [-30, -27], y in [0, 3], heading in [-0.3, 0.3],
+    goal (20, 2); DynamicBicycle2D: goal speed 8).
     """
     spec = make_spec(model_name, a_max=1.0, w_max=0.5) if model_name == DYNAMIC_UNICYCLE_2D \
         else make_spec(model_name)
@@ -176,11 +183,25 @@ def _planar_inputs(model_name, batch, num_obs, device, dtype):
                             KINEMATIC_BICYCLE_2D_DPCBF):
             xs_np[:, 2] = rng.uniform(-1, 1, batch)
             xs_np[:, 3] = rng.uniform(0.5, 2.0, batch)
+        elif model_name in (DYNAMIC_BICYCLE_2D, DRIFTING_CAR):
+            body = np.stack([rng.uniform(-0.2, 0.2, batch), rng.uniform(-0.1, 0.1, batch),
+                             rng.uniform(5.0, 10.0, batch), rng.uniform(-0.1, 0.1, batch),
+                             rng.uniform(0.0, 1000.0, batch)], axis=1)
+            if model_name == DRIFTING_CAR:
+                xs_np[:, 0] -= 30.0
+                xs_np[:, 2] = rng.uniform(-0.3, 0.3, batch)
+                xs_np[:, 3:] = body
+            else:
+                xs_np = body
         else:
             raise ValueError(f"build_fused_step has no inputs for {model_name}")
     xs = torch.as_tensor(xs_np, dtype=dtype, device=device)
     goals = torch.zeros((batch, n), dtype=dtype, device=device)
-    if model_name != MANIPULATOR_2D:
+    if model_name == DYNAMIC_BICYCLE_2D:
+        goals[:, 2] = 8.0
+    elif model_name == DRIFTING_CAR:
+        goals[:, :2] = torch.tensor([20.0, 2.0], dtype=dtype, device=device)
+    elif model_name != MANIPULATOR_2D:
         goals[:, :2] = torch.tensor([5.0, 2.0], dtype=dtype, device=device)
     moving = model_name in (KINEMATIC_BICYCLE_2D_C3BF, KINEMATIC_BICYCLE_2D_DPCBF)
     obs_one = pad_obstacles(MOVING_OBSTACLES if moving else FUSED_OBSTACLES, num_obs,

@@ -15,10 +15,15 @@ import torch
 
 from safe_control_tpu_torch.attitude.gatekeeper_att import GatekeeperAttConfig, GatekeeperAttState
 from safe_control_tpu_torch.core.spec import RobotSpec
+from safe_control_tpu_torch.parallel.monte_carlo import SweepState
 from safe_control_tpu_torch.perception.fov import ObsMemory
 from safe_control_tpu_torch.perception.grid import GridSpec
+from safe_control_tpu_torch.shielding.backup_cbf import BackupCBFConfig
+from safe_control_tpu_torch.shielding.gatekeeper import GatekeeperConfig, GatekeeperState
 from safe_control_tpu_torch.sim.tracking import TrackerConfig, TrackerState
+from safe_control_tpu_torch.solvers.al_gn import ALGNConfig
 from safe_control_tpu_torch.solvers.mpc_cbf import MPCConfig, MPCState
+from safe_control_tpu_torch.solvers.mpcc import MPCCConfig, Path
 
 
 def spec_from_jax(obj, device=None, dtype=torch.float32) -> RobotSpec:
@@ -83,6 +88,53 @@ def tracker_config_from_jax(cfg) -> TrackerConfig:
     return TrackerConfig(**values)
 
 
+def _array(a, device, dtype):
+    """An array as a tensor: floating as ``dtype``, integer as int64, bool as bool."""
+    a = np.array(a)
+    if a.dtype == np.bool_:
+        return torch.as_tensor(a, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a, dtype=torch.long, device=device)
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def mpcc_config_from_jax(cfg) -> MPCCConfig:
+    """An :class:`MPCCConfig` with every field of the JAX ``MPCCConfig``."""
+    values = _fields(MPCCConfig, cfg)
+    values["al"] = ALGNConfig(**{k: getattr(cfg.al, k) for k in ALGNConfig._fields})
+    return MPCCConfig(**values)
+
+
+def path_from_jax(path, device=None, dtype=torch.float32) -> Path:
+    """A :class:`Path` holding the JAX ``Path``'s arrays as they are."""
+    return Path(*(torch.as_tensor(np.array(a), dtype=dtype, device=device) for a in path))
+
+
+def gatekeeper_config_from_jax(cfg) -> GatekeeperConfig:
+    return GatekeeperConfig(**_fields(GatekeeperConfig, cfg))
+
+
+def gatekeeper_state_from_numpy(state, device=None, dtype=torch.float32) -> GatekeeperState:
+    """A :class:`GatekeeperState` from the JAX state's arrays, each with a
+    leading batch axis (one is added to an unbatched state)."""
+    batched = np.ndim(state.time_idx) == 1
+    conv = lambda a: _array(a if batched else np.asarray(a)[None], device, dtype)
+    return GatekeeperState(*(conv(getattr(state, f)) for f in GatekeeperState._fields))
+
+
+def backup_cbf_config_from_jax(cfg) -> BackupCBFConfig:
+    return BackupCBFConfig(**_fields(BackupCBFConfig, cfg))
+
+
+def sweep_state_from_numpy(state, device=None, dtype=torch.float32) -> SweepState:
+    """A :class:`SweepState` from the JAX ``SweepState``'s tracker and
+    obstacle arrays (``jax.vmap``-batched) and its step count."""
+    return SweepState(tracker=tracker_state_from_numpy(state.tracker, device, dtype),
+                      obs=_array(state.obs, device, dtype),
+                      steps_done=torch.as_tensor(int(np.asarray(state.steps_done)),
+                                                 dtype=torch.long, device=device))
+
+
 def tracker_state_from_numpy(state, device=None, dtype=torch.float32) -> TrackerState:
     """A :class:`TrackerState` read from an object with the JAX
     ``TrackerState``'s attributes, each an array with a leading batch axis
@@ -91,12 +143,7 @@ def tracker_state_from_numpy(state, device=None, dtype=torch.float32) -> Tracker
     """
 
     def conv(a):
-        a = np.array(a)
-        if a.dtype == np.bool_:
-            return torch.as_tensor(a, device=device)
-        if np.issubdtype(a.dtype, np.integer):
-            return torch.as_tensor(a, dtype=torch.long, device=device)
-        return torch.as_tensor(a, dtype=dtype, device=device)
+        return _array(a, device, dtype)
 
     return TrackerState(
         x=conv(state.x), yaw=conv(state.yaw), mode=conv(state.mode),

@@ -32,8 +32,9 @@ Solver routing inside ``step``, one solver call for the whole batch:
   selected obstacle, with the softer nominal gains (k_omega 3, k_a 0.5,
   k_v 0.5) for the nominal input.
 
-Every model of the registry runs here; DynamicBicycle2D and DriftingCar
-are not ported yet and raise the registry's "not yet ported" error.
+Every model of the registry has its initial state here; the drift models
+(DynamicBicycle2D, DriftingCar) have no MPC weights and run under the
+drift simulator's shielding (``sim/drift_sim.py``), not this tracker.
 """
 
 from __future__ import annotations

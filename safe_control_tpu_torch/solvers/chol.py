@@ -64,3 +64,42 @@ def chol_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     Only the lower triangle of ``H`` is read.
     """
     return chol_solve_factored(chol_factor(H), g)
+
+
+def chol_factor_steps(H: torch.Tensor) -> torch.Tensor:
+    """``chol_factor`` in D column steps, for a wide ``H (..., D, D)``.
+
+    Step j clamps and roots the pivot, scales column j below it, and
+    subtracts that column's rank-1 product from the trailing block: the
+    right-looking factorization.  Each entry of the trailing block meets
+    the products in the same order as in ``chol_factor``
+    (``H[i][k] - L[i][0] L[k][0] - L[i][1] L[k][1] - ...``), so the factor
+    is the same; it takes D steps of a few operations instead of D^2/2.
+    Only the lower triangle of ``H`` is read.
+    """
+    D = H.shape[-1]
+    A = torch.tril(H)
+    L = torch.zeros_like(H)
+    for j in range(D):
+        d = torch.sqrt(torch.clamp_min(A[..., j, j], 1e-20))
+        col = A[..., j + 1:, j] / d[..., None]
+        L[..., j, j] = d
+        L[..., j + 1:, j] = col
+        A[..., j + 1:, j + 1:] -= col[..., :, None] * col[..., None, :]
+    return L
+
+
+def chol_solve_steps(L: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Solve ``L L' x = g`` in D row steps of the forward and D of the
+    back substitution, each one dot product of a row of ``L`` with the
+    entries found so far: ``g (..., D)``."""
+    D = L.shape[-1]
+    w = torch.zeros_like(g)
+    for i in range(D):
+        s = g[..., i] - (L[..., i, :i] * w[..., :i]).sum(-1)
+        w[..., i] = s / L[..., i, i]
+    x = torch.zeros_like(g)
+    for i in reversed(range(D)):
+        s = w[..., i] - (L[..., i + 1:, i] * x[..., i + 1:]).sum(-1)
+        x[..., i] = s / L[..., i, i]
+    return x

@@ -31,7 +31,7 @@ import torch
 from safe_control_tpu_torch.barriers.hocbf import dt_h as hocbf_dt_h
 from safe_control_tpu_torch.barriers.hocbf import tensor_fields
 from safe_control_tpu_torch.core import spec as spec_mod
-from safe_control_tpu_torch.dynamics import get_model
+from safe_control_tpu_torch.dynamics import dynamic_bicycle2d, get_model
 from safe_control_tpu_torch.dynamics import kinematic_bicycle2d_dpcbf
 from safe_control_tpu_torch.dynamics import quad3d
 from safe_control_tpu_torch.solvers import mpc_cbf as mpc_mod
@@ -50,6 +50,8 @@ MODEL_IDS = {
     spec_mod.KINEMATIC_BICYCLE_2D_DPCBF: 8,
     spec_mod.QUAD_2D: 9,
     spec_mod.MANIPULATOR_2D: 10,
+    spec_mod.DYNAMIC_BICYCLE_2D: 11,
+    spec_mod.DRIFTING_CAR: 12,
 }
 _BICYCLES = (spec_mod.KINEMATIC_BICYCLE_2D, spec_mod.KINEMATIC_BICYCLE_2D_C3BF,
              spec_mod.KINEMATIC_BICYCLE_2D_DPCBF)
@@ -273,7 +275,30 @@ def _model_params(model_name, spec, dt) -> list:
             s.k_front, s.k_rear, s.k_pusher,
             s.ell_f * s.k_front / s.inertia, -s.ell_r * s.k_rear / s.inertia,
         ]
+    if model_name in (spec_mod.DYNAMIC_BICYCLE_2D, spec_mod.DRIFTING_CAR):
+        return _drift_params(spec)
     return []
+
+
+def _drift_params(spec) -> list:
+    """DynamicBicycle2D's constants (``csrc/mpc_fused_models.h``), each as
+    the PyTorch model forms it from the spec's floats."""
+    Fz_f, Fz_r = dynamic_bicycle2d.normal_forces(spec)
+
+    def axle(Cc, Fz):
+        mu_fz = spec.mu * Fz
+        return [-Cc, Cc * Cc, Cc * Cc * Cc, 1.0 / Cc, mu_fz * mu_fz]
+
+    F_lim = spec.mu * Fz_r
+    out = [spec.a_cg, spec.b_cg, 1.0 / spec.izz, spec.mass, 1.0 / spec.mass,
+           *axle(spec.cc_f, Fz_f), *axle(spec.cc_r, Fz_r), spec.gamma_stab,
+           F_lim, 1.0 / (spec.r_w * max(F_lim, 1.0))]
+    for c in (spec.r_max, spec.beta_max):
+        out += [-c, c]
+    out += [spec.v_min, spec.v_max]
+    for c in (spec.delta_max, spec.tau_max):
+        out += [-c, c]
+    return out
 
 
 def kernel_params(model_name, spec, dt, cfg) -> list:

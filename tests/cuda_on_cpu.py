@@ -14,7 +14,8 @@ that no thread wrote shows.  No FMA contraction, as ``-fmad=false`` on the
 card, so a kernel that rounds as its plain version does gives the same bits
 on the CPU.  A kernel that uses another CUDA feature extends the header.
 
-The C library's ``sinf``, ``cosf``, ``expf`` and ``atan2f`` round unlike
+The C library's ``sinf``, ``cosf``, ``expf``, ``atan2f``, ``tanf``, ``atanf``
+and ``tanhf`` round unlike
 PyTorch's CPU kernels.  ``build(..., ieee_math=True)`` replaces them by the
 float64 function rounded once to float32, and ``ieee_math`` patches
 ``torch`` with the same functions and PyTorch's forward-mode derivative
@@ -69,10 +70,16 @@ static inline float emu_sinf(float a) { return (float)sin((double)a); }
 static inline float emu_cosf(float a) { return (float)cos((double)a); }
 static inline float emu_expf(float a) { return (float)exp((double)a); }
 static inline float emu_atan2f(float y, float x) { return (float)atan2((double)y, (double)x); }
+static inline float emu_tanf(float a) { return (float)tan((double)a); }
+static inline float emu_atanf(float a) { return (float)atan((double)a); }
+static inline float emu_tanhf(float a) { return (float)tanh((double)a); }
 #define sinf emu_sinf
 #define cosf emu_cosf
 #define expf emu_expf
 #define atan2f emu_atan2f
+#define tanf emu_tanf
+#define atanf emu_atanf
+#define tanhf emu_tanhf
 #endif
 template <class F>
 static inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
@@ -299,17 +306,73 @@ class _Atan2(torch.autograd.Function):
         return (-y * tx + x * ty) / (y * y + x * x)
 
 
+class _Tan(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return _ieee(torch.ops.aten.tan, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(output)
+
+    @staticmethod
+    def jvp(ctx, t):
+        (r,) = ctx.saved_tensors
+        return t * (1 + r * r)
+
+
+class _Atan(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return _ieee(torch.ops.aten.atan, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def jvp(ctx, t):
+        (x,) = ctx.saved_tensors
+        return t / (x * x + 1)
+
+
+class _Tanh(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return _ieee(torch.ops.aten.tanh, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(output)
+
+    @staticmethod
+    def jvp(ctx, t):
+        (r,) = ctx.saved_tensors
+        return torch.ops.aten.tanh_backward(t, r)  # t * fma(-r, r, 1)
+
+
 def ieee_math(monkeypatch) -> None:
-    """Patch ``torch.sin``, ``cos``, ``exp``, ``sqrt`` and ``atan2`` with the
-    float64 functions rounded once to float32, the counterpart of a build
-    with ``ieee_math=True``.  Their forward-mode derivatives follow
-    PyTorch's rules (``csrc/mpc_fused_dual.h``): t cos v, t (-sin v), t r,
-    t / (2 r) and (-y tx + x ty) / (y^2 + x^2)."""
+    """Patch ``torch.sin``, ``cos``, ``exp``, ``sqrt``, ``atan2``, ``tan``,
+    ``atan`` and ``tanh`` with the float64 functions rounded once to
+    float32, the counterpart of a build with ``ieee_math=True``.  Their
+    forward-mode derivatives follow PyTorch's rules
+    (``csrc/mpc_fused_dual.h``): t cos v, t (-sin v), t r, t / (2 r),
+    (-y tx + x ty) / (y^2 + x^2), t (1 + r^2), t / (v^2 + 1) and
+    t fma(-r, r, 1)."""
     monkeypatch.setattr(torch, "sin", _Sin.apply)
     monkeypatch.setattr(torch, "cos", _Cos.apply)
     monkeypatch.setattr(torch, "exp", _Exp.apply)
     monkeypatch.setattr(torch, "sqrt", _Sqrt.apply)
     monkeypatch.setattr(torch, "atan2", _Atan2.apply)
+    monkeypatch.setattr(torch, "tan", _Tan.apply)
+    monkeypatch.setattr(torch, "atan", _Atan.apply)
+    monkeypatch.setattr(torch, "tanh", _Tanh.apply)
 
 
 def _launch(match: re.Match) -> str:
@@ -323,7 +386,8 @@ def _launch(match: re.Match) -> str:
 def build(source: Path, tmp_path: Path, ieee_math: bool = False) -> ctypes.CDLL:
     """``source`` (a ``csrc/*.cu``) built for the CPU under the emulation
     into ``tmp_path``, and loaded; its headers are found beside it.  With
-    ``ieee_math`` the C library's sinf, cosf, expf and atan2f become the
+    ``ieee_math`` the C library's sinf, cosf, expf, atan2f, tanf, atanf and
+    tanhf become the
     float64 functions rounded to float32 (see :func:`ieee_math`)."""
     (tmp_path / "cuda_runtime.h").write_text(CUDA_ON_CPU)
     text = re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(", _launch, source.read_text())

@@ -97,18 +97,18 @@ def test_masked_apply_and_free_bounds():
     assert torch.isinf(lo).all() and (lo < 0).all() and torch.isinf(hi).all() and (hi > 0).all()
 
 
-@pytest.mark.parametrize("name", ["DynamicBicycle2D", "DriftingCar", "NoSuchModel"])
+@pytest.mark.parametrize("name", ["NoSuchModel"])
 def test_get_model_raises_for_models_not_ported(name):
     with pytest.raises(ValueError, match="not yet ported"):
         get_model(name)
 
 
-def test_registry_holds_every_model_but_two():
+def test_registry_equals_the_jax_packages_13_models():
     from safe_control_tpu.dynamics import MODEL_REGISTRY as JREG
     from safe_control_tpu_torch.dynamics import MODEL_REGISTRY
 
-    assert set(MODEL_REGISTRY) == set(JREG) - {"DynamicBicycle2D", "DriftingCar"}
-    assert len(MODEL_REGISTRY) == 11
+    assert set(MODEL_REGISTRY) == set(JREG)
+    assert len(MODEL_REGISTRY) == 13
 
 
 def _integrator_inputs(n, B=64, seed=3):

@@ -188,6 +188,10 @@ def _jax_cfg(**kw):
     ("Quad2D", _jax_cfg(horizon=10, newton_f64=True)),
     ("Manipulator2D", _jax_cfg(horizon=21)),  # M = 63
     ("Manipulator2D", _jax_cfg(horizon=22)),  # M = 66
+    ("DynamicBicycle2D", _jax_cfg(horizon=10)),
+    ("DynamicBicycle2D", _jax_cfg(horizon=33)),  # M = 66
+    ("DriftingCar", _jax_cfg(horizon=32)),  # M = 64
+    ("DriftingCar", _jax_cfg(horizon=30, polish_iters=1)),
 ])
 def test_fused_available_agrees_with_jax(model_name, cfg):
     assert tfused.fused_available(model_name, interop.config_from_jax(cfg)) == \
@@ -195,11 +199,13 @@ def test_fused_available_agrees_with_jax(model_name, cfg):
 
 
 def test_fused_available_needs_a_cuda_instantiation():
+    """Every registered model has one (the drift models since A.6.2)."""
     cfg = tmpc.MPCConfig(horizon=4)
     assert jfused.fused_available("DynamicBicycle2D", jmpc.MPCConfig(horizon=4))
-    assert not tfused.fused_available("DynamicBicycle2D", cfg)  # JAX admits it; not ported
+    assert tfused.fused_available("DynamicBicycle2D", cfg)
+    assert not tfused.fused_available("NoSuchModel", cfg)
     assert set(tfused.MODEL_IDS) == set(tmpc.MODEL_REGISTRY)
-    assert len(tfused.MODEL_IDS) == 11 and sorted(tfused.MODEL_IDS.values()) == list(range(11))
+    assert len(tfused.MODEL_IDS) == 13 and sorted(tfused.MODEL_IDS.values()) == list(range(13))
 
 
 def _quad_inputs(B=2, N=3):
@@ -300,9 +306,11 @@ def test_wrapper_rejects_bad_inputs():
 def test_cuda_source_matches_module(monkeypatch):
     """The entry point's model ids, the parameter block's fixed head and each
     model's constant count agree between the CUDA source and the module.
-    (Manipulator2D has no MPC cost weights in either package; unit weights
-    stand in, to size its parameter block.)"""
+    (Manipulator2D and the two drift models have no MPC cost weights in
+    either package; unit weights stand in, to size their parameter blocks.)"""
     monkeypatch.setitem(tmpc._WEIGHTS, "Manipulator2D", ([1.0] * 3, [1.0] * 3))
+    monkeypatch.setitem(tmpc._WEIGHTS, "DynamicBicycle2D", ([1.0] * 5, [1.0] * 2))
+    monkeypatch.setitem(tmpc._WEIGHTS, "DriftingCar", ([1.0] * 8, [1.0] * 2))
     kernel = (CSRC / "mpc_fused_kernel.cu").read_text()
     models = (CSRC / "mpc_fused_models.h").read_text()
     cases = dict((name, int(i)) for i, name in re.findall(r"MPC_FUSED_CASE\((\d+), (\w+)\)",

@@ -25,7 +25,8 @@ JAX ``init_state`` read across with ``interop.tracker_state_from_numpy``):
   codes, states within 2e-3;
 - the freeze of terminal robots inside a mixed batch;
 - ``init_state`` against JAX's, ``TrackerConfig``'s validation errors
-  (``tests/test_controller_dispatch.py``), and models not yet ported;
+  (``tests/test_controller_dispatch.py``), and the drift models' initial
+  state (ported since A.6.2; the test keeps its earlier name);
 - the dynamic-obstacle scenario of ``tests/test_dynamic_env_e2e.py``
   (KinematicBicycle2D with the DPCBF or C3BF barrier through the CBF-QP,
   8 moving obstacles): two steps of ``run_dynamic`` at B=8 against
@@ -361,9 +362,18 @@ def test_tracker_config_validation():
 
 @pytest.mark.parametrize("name", ["DynamicBicycle2D", "DriftingCar"])
 def test_models_not_yet_ported_raise(name):
+    """The drift models are ported now: their initial tracker state equals
+    JAX's, and a state of the wrong size still raises."""
     cfg = tt.TrackerConfig(model_name=name)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tt.init_state(cfg, interop.spec_from_jax(make_spec(name)), torch.zeros(3), device="cpu")
+    spec = interop.spec_from_jax(make_spec(name))
+    x0 = np.linspace(0.1, 0.8, 5 if name == "DynamicBicycle2D" else 8)
+    tst = tt.init_state(cfg, spec, torch.tensor(x0, dtype=torch.float32), device="cpu")
+    jst = jt.init_state(jt.TrackerConfig(model_name=name), make_spec(name), jnp.asarray(x0))
+    np.testing.assert_array_equal(tst.x[0].numpy(), np.asarray(jst.x))
+    assert int(tst.mode[0]) == int(jst.mode)
+    assert tst.mpc.U.shape[1:] == jst.mpc.U.shape and tst.mpc.lam.shape[1:] == jst.mpc.lam.shape
+    with pytest.raises(RuntimeError):
+        tt.init_state(cfg, spec, torch.zeros(3), device="cpu")
 
 
 # The scenario of tests/test_dynamic_env_e2e.py: 8 obstacles moving at
