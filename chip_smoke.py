@@ -66,7 +66,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
     (active rows counted in phase 10a), and the single-robot latency:
     microseconds per solve over a chain of warm-started B=1
     ``solve_dispatch`` calls, Quad3D N=10 and DU N=8, 25 through the fused
-    kernel and 5 through the general solve (seconds a solve, host-bound).
+    kernel and CHAIN_GENERAL through the general solve (seconds a solve,
+    host-bound).
 
 13. The tracking loop, one robot: the DynamicUnicycle2D MPC-CBF scenario of
     ``tests/test_tracking_e2e.py`` (N=8, K=5, the 8x3 budget, tf 120 s)
@@ -80,8 +81,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
     iterations, tf 100 s): the same gates, with one QP kernel launch a
     control step.
 15. A fleet through ``sim.tracking.run`` at B=4096: the DoubleIntegrator2D
-    CBF-QP scenario for 2000 steps (robot 0 at the scenario's start, the
-    others within +-0.1 m of it, from ``np.random.default_rng(0)``) and
+    CBF-QP scenario for 900 steps (robot 0 completes it at step 876; 2000
+    before phases 24-27 needed the time) (robot 0 at the scenario's start,
+    the others within +-0.1 m of it, from ``np.random.default_rng(0)``) and
     the DynamicUnicycle2D MPC-CBF one through the fused kernel for 50
     steps.  Gates: one kernel launch a step; robot 0 meets phase 14's
     predicates; for the first 64 robots, the first 20 (DI) and 5 (DU)
@@ -105,7 +107,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
     no fallback logged.
 17. The dynamic-obstacle scenario of ``tests/test_dynamic_env_e2e.py`` (8
     moving obstacles, 2 waypoints, dt 0.05, a_max 5, radius 0.3):
-    ``tracking.run_dynamic`` with the CBF-QP for 800 steps, one
+    ``tracking.run_dynamic`` with the CBF-QP for DYN_STEPS steps, one
     KinematicBicycle2D_DPCBF and one _C3BF robot (RET_DONE, never
     RET_INFEASIBLE, one B2 launch a step), then a DPCBF fleet at B=4096
     (robot 0 at the start, the others within +-0.1 m, ``default_rng(0)``):
@@ -124,8 +126,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
     float64 on the c2 anchors of ``tests/data`` (within 1e-3 of the
     goldens); ``newton_f64`` on ``entry.build_step``'s inputs at B=256
     (finite, 95% within 5e-3 of the float32 solve); ``MPCConfig.rti``
-    VTOL2D N=30 (M=120) for one robot, 5 warm-started steps, ms a step
-    beside the 50 ms period.
+    VTOL2D N=30 (M=120) for one robot, RTI_STEPS warm-started steps, ms a
+    step beside the 50 ms period.
 
 20. B3's DynamicBicycle2D and DriftingCar instantiations (unit cost weights:
     neither model has MPC weights in either package): each one's build
@@ -150,8 +152,38 @@ Run from the root of a checkout:  python3 chip_smoke.py
     eager step (within 1e-6); then 20 replayed steps of the backup-CBF
     configuration (finite, no collision).
 
-Phase 12's general-solve chains (``CHAIN_GENERAL``) and phase 19d's RTI
-steps (``RTI_STEPS``) run at a cut depth, 2 each, to leave room for these.
+24. The warehouse case study of ``tests/test_warehouse_e2e.py`` through
+    ``sim.warehouse_sim``'s captured CUDA graphs: one eager step of each
+    strategy on the card against its first replayed step (within 1e-6),
+    BackupCBF's first step from rest on the JAX package's branch (the QP
+    fails, the nominal [3, 0]); the gatekeeper at levels 1-7, 1200 steps
+    each (no collision, min h > -0.05, backup steps > 0, past waypoint 1);
+    BackupCBF reaching the goal at level 1 (min h > -0.05, min rollout h <
+    3) and colliding at levels 2-7.
+25. The tracked heterogeneous fleet (``parallel.fleet.step_fleet``):
+    ``tests/test_fleet.py``'s 24 robots for 200 steps (no infeasible or
+    colliding robot, closest pair > 0.45 m); anchor 5 at
+    ``examples/heterogeneous_fleet.py``'s defaults (3 x 1365 robots in
+    serpentine lattices, 200 steps in chunks of 10, margin 0.3): one B2
+    launch a group a step (gated), finite states, each group's first 64
+    robots' first 20 controls within QP_U_TOL of B2's plain version;
+    agent-steps/s, waypoint progress, B2's time, bound and share; one chunk
+    traced with ``utils.profiling.trace_to`` (the device's busy share, the
+    five longest kernels).
+26. The shielded fleet (``step_fleet_shielded``): the two walls of 32 and
+    the head-on pair of ``tests/test_fleet_shielded.py`` to its predicates;
+    ``bench.py``'s 4,096-agent three-family anchor, 17 chunks of 4 steps:
+    collision-free after every chunk, shields engaged; agent-steps/s.
+27. The multi-device path on a NCCL process group of world size 1:
+    ``run_sharded_sweep`` and ``step_fleet_shielded_sharded`` equal to their
+    single-device paths bit for bit.
+
+Cut depths, to keep the whole script inside 800 s: phase 12's general-solve
+chains (``CHAIN_GENERAL``) and phase 19d's RTI steps (``RTI_STEPS``) run 1
+step each (5, then 2, before); phase 15's DI fleet 900 steps (2000 before
+phases 24-27 came); phase 17's runs 400 steps (800 before; its robots
+reach RET_DONE at steps 255-285); phase 23's backup-CBF steps 10 (20).  Phase 24 runs its gatekeeper levels and
+its BackupCBF levels at once, in two host threads on two CUDA streams.
 
 Every time is printed beside the card's name and power limit, and each
 phase's wall seconds from phase 13 on.  Prints one JSON line of per-kernel
@@ -163,6 +195,7 @@ when any check fails.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import logging
 import re
@@ -182,10 +215,10 @@ QP_X_TOL = 1e-3  # QP kernel vs its plain version at the main path's shapes
 QP_WIDE_TOL = 2e-3  # at m=153, and against the general solve_qp (JAX's envelope)
 QP_U_TOL = 1e-3  # CBF-QP path: first 64 robots vs the plain version
 CHAIN = 25  # warm-started B=1 solves timed for the single-robot latency
-CHAIN_GENERAL = 2  # the same through the general solve (host-bound, seconds a solve)
-RTI_STEPS = 2  # phase 19d's warm-started VTOL2D N=30 RTI steps (the general solve)
+CHAIN_GENERAL = 1  # the same through the general solve (host-bound, seconds a solve)
+RTI_STEPS = 1  # phase 19d's warm-started VTOL2D N=30 RTI steps (the general solve)
 FLEET = 4096  # robots of the tracking fleet (phase 15)
-FLEET_DI_STEPS = 2000  # the DI scenario's 100 s at dt 0.05
+FLEET_DI_STEPS = 900  # robot 0 reaches RET_DONE at step 876 (45 s at dt 0.05)
 FLEET_DU_STEPS = 50
 REPLAY = {"cbf_qp": 20, "mpc_cbf": 5}  # fleet steps replayed with the plain version
 PASS_TOL = 0.35  # every waypoint passed this close (tests/test_tracking_e2e.py)
@@ -195,7 +228,7 @@ DYN_BASE = [[8.0, 9.0, 0.5], [10.0, 4.0, 0.5], [12.0, 5.0, 0.5], [14.0, 9.0, 0.5
             [16.0, 6.0, 0.5], [18.0, 14.0, 0.5], [20.0, 4.0, 0.5], [22.0, 12.0, 0.5]]
 DYN_VELS = [[-0.5, 0.5] if i % 2 == 0 else [-0.5, -0.5] for i in range(8)]
 DYN_WAYPOINTS = [[1.0, 7.5], [20.0, 7.5]]
-DYN_STEPS = 800
+DYN_STEPS = 400  # the robots of phase 17 reach RET_DONE at steps 255-285
 # Manipulator2D's CBF-QP: three circles its links reach, two dummy slots.
 ARM_OBSTACLES = [[1.6, 1.2, 0.3, 0, 0, 0, 0], [0.4, 1.9, 0.3, 0, 0, 0, 0],
                  [-1.0, 1.5, 0.4, 0, 0, 0, 0]]
@@ -488,14 +521,14 @@ def single_robot(dev, card, phase, robot_spec, pos_controller, x0, tf, counter):
     return len(rets), ms
 
 
-def replay(cfg, spec, st0, traj, args_at, qp, per_robot_obs=False):
+def replay(cfg, spec, st0, traj, args_at, qp):
     """A fleet run's first steps again, one at a time, from ``st0``:
     ``tracking.step(cfg, spec, state, *args_at(i))`` for step i.  Returns the
     kernel's ms a step (CUDA events around B2's or B3's launch), whether the
     states equal the run's ``traj``, and for the first N_GENERAL robots each
     step's max |du| against the same step with the kernel's plain version
-    bound in its place (``per_robot_obs``: the obstacles, the third
-    argument, are per robot and are cut to those robots too)."""
+    bound in its place (per-robot waypoints and obstacles, the 3-D
+    arguments, are cut to those robots too)."""
     from safe_control_tpu_torch.sim import tracking
     from safe_control_tpu_torch.solvers import mpc_fused as mf
     from safe_control_tpu_torch.solvers import qp_kernel as qpk
@@ -531,7 +564,8 @@ def replay(cfg, spec, st0, traj, args_at, qp, per_robot_obs=False):
     setattr(counter, plain_name, getattr(counter, plain_name + "_reference"))
     try:
         def cut(args):
-            return (*args[:2], args[2][:k], *args[3:]) if per_robot_obs else args
+            return tuple(a[:k] if isinstance(a, torch.Tensor) and a.dim() == 3 else a
+                         for a in args)
 
         dev_plain = [(tracking.step(cfg, spec, sti, *cut(args_at(i))).u - traj["u"][:k, i])
                      .abs().max().item() for i, sti in enumerate(states)]
@@ -1012,7 +1046,7 @@ DRIFT_DT = 0.05
 DRIFT_LANE_W, DRIFT_LANES, DRIFT_TRACK = 4.0, 5, 300.0
 DRIFT_EGO, DRIFT_MIDDLE, DRIFT_BACKUP = 1, 2, 3
 DRIFT_TF = 8.0  # 160 steps
-DRIFT_BACKUPCBF_STEPS = 20
+DRIFT_BACKUPCBF_STEPS = 10
 SWEEP_BATCH, SWEEP_STEPS = 1024, 400  # examples/monte_carlo_sweep.py's defaults
 
 
@@ -1134,8 +1168,7 @@ def monte_carlo_sweep(dev, card):
     for _ in range(REPLAY["cbf_qp"]):
         obs_seq.append(tracking.step_dynamic_obstacles(obs_seq[-1], cfg.dt, y_range=(0.0, 15.0)))
     kernel_ms, same_x, dev_plain = replay(cfg, spec, st0.tracker, traj,
-                                          lambda i: (wps, 2, obs_seq[i]), True,
-                                          per_robot_obs=True)
+                                          lambda i: (wps, 2, obs_seq[i]), True)
     step_ms = wall / SWEEP_STEPS * 1e3
     qn, qm = 2, cfg.num_obs + 2
     b2_bound, b2_by = bound(b2_flops(SWEEP_BATCH, qn, qm, cfg.qp_iters),
@@ -1282,6 +1315,397 @@ def drift_scenario(dev, card):
                 eager_ms=eager_ms, dx_first=dx_first, nodes=nodes, backupcbf_ms=b_ms)
 
 
+WAREHOUSE_LEVELS = range(1, 8)
+# tests/test_warehouse_e2e.py's BCBF_EXPECTED: the stop backup survives level 1 only
+BCBF_EXPECTED = {1: "reached", 2: "collision", 3: "collision", 4: "collision", 5: "collision",
+                 6: "collision", 7: "collision"}
+CORRIDOR_STEPS = 200  # tests/test_fleet.py's 10 s
+FLEET_ANCHOR = 4096  # examples/heterogeneous_fleet.py's defaults: --n 4096 --steps 200 --chunk 10
+FLEET_ANCHOR_STEPS = 200
+FLEET_ANCHOR_CHUNK = 10
+SHIELDED_ROWS = 2048  # bench.py::bench_fleet_shielded: 4096 agents, 17 chunks of 4 steps
+SHIELDED_CHUNKS = 17
+
+
+def warehouse(dev, card):
+    """Phase 24: the warehouse case study through ``sim.warehouse_sim``'s
+    captured CUDA graphs: the gatekeeper at every level (no collision, min h
+    > -0.05, shields engaged, past the first leg), BackupCBF reaching the goal
+    at level 1 and colliding at levels 2-7; the first step of each strategy
+    replayed against an eager one (within 1e-6), BackupCBF's first step from
+    rest on the JAX package's branch (the QP fails, the nominal [3, 0] is
+    applied).  Returns a dict of the numbers."""
+    import numpy as np
+
+    from safe_control_tpu_torch.envs.warehouse_env import WarehouseEnv
+    from safe_control_tpu_torch.shielding import gatekeeper as gk
+    from safe_control_tpu_torch.sim import warehouse_sim as ws
+
+    t_phase = time.perf_counter()
+    env = WarehouseEnv(level=1, dt=ws.DT, device=dev)
+    spots = ws.padded_spots(env)
+    x0 = torch.tensor([[10.0, 10.0, 0.0, 0.0]], device=dev)
+    goal = torch.tensor([[30.0, 10.0]], device=dev)  # waypoint 1
+    ghosts = env.ghosts
+    inputs = {"gatekeeper": lambda: (gk.init_state(ws.GK_CFG, 1, device=dev), x0, goal, ghosts,
+                                     spots),
+              "backup_cbf": lambda: (x0, goal, ghosts)}
+    first = {}
+    for name, make in inputs.items():
+        eager = ws.step_object(name, dev, graph=False)
+        eager(*make())  # first use of every op
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep_e = eager(*make())[-1].cpu()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        graphed = ws.step_object(name, dev)
+        t0 = time.perf_counter()
+        rep_g = graphed(*make())[-1].cpu()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(20):
+            graphed(*make())[-1].cpu()
+        replay_ms = (time.perf_counter() - t0) / 20 * 1e3
+        first[name] = dict(eager_ms=eager_ms, first_s=first_s, capture_s=graphed.capture_seconds,
+                           replay_ms=replay_ms, dx=(rep_e - rep_g).abs().max().item(),
+                           report=rep_g.numpy())
+        capture = "no graph" if graphed.capture_seconds is None else \
+            f"captured in {graphed.capture_seconds:.2f} s"
+        print(f"phase 24 [{card}] warehouse {name} step: eager on the card {eager_ms:.1f} ms, "
+              f"{capture} (the first step {first_s:.2f} s), "
+              f"{replay_ms:.2f} ms a replayed step (host clock, the host read included); first "
+              f"step replay vs eager max|d| {first[name]['dx']:.3e}")
+    b0 = first["backup_cbf"]["report"]  # x1 (4), u (2), h_min, qp_ok, using_backup
+    rest_ok = bool(b0[7] == 0.0 and b0[8] == 0.0 and np.abs(b0[4:6] - [3.0, 0.0]).max() < 1e-6
+                   and abs(b0[6] - 1.0) < 1e-6)
+    print(f"phase 24 [{card}] BackupCBF from rest at level 1: u {b0[4:6].tolist()}, qp_ok "
+          f"{bool(b0[7])}, using_backup {bool(b0[8])}, h_min {b0[6]:.6f} (the JAX package: "
+          f"[3, 0], False, False, 1.0)")
+
+    # Every level of both strategies at once, each in a host thread on a
+    # CUDA stream of its own: one level's step is a graph of small kernels
+    # that leaves most of the card idle.  warehouse_sim keeps one captured
+    # step per stream; capture each one up front, one at a time, since a
+    # capture must not overlap other work on the card.
+    jobs = [(name, run, level, torch.cuda.Stream(dev))
+            for name, run in (("gatekeeper", ws.run_gatekeeper_level),
+                              ("backup_cbf", ws.run_backup_cbf_level))
+            for level in WAREHOUSE_LEVELS]
+    t0 = time.perf_counter()
+    for name, _, _, stream in jobs:
+        with torch.cuda.stream(stream):
+            ws.step_object(name, dev)(*inputs[name]())
+    torch.cuda.synchronize()
+    captures_s = time.perf_counter() - t0
+
+    def level_run(name, run, level, stream):
+        with torch.cuda.stream(stream):
+            t0 = time.perf_counter()
+            r = run(level, device=dev)
+            return name, level, r, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        done = [f.result() for f in [pool.submit(level_run, *job) for job in jobs]]
+    levels_s = time.perf_counter() - t0
+    rows, ok = [], rest_ok and all(v["dx"] <= 1e-6 for v in first.values())
+    for name, level, r, secs in done:
+        if name == "gatekeeper":
+            good = (r["outcome"] != "collision" and r["min_h"] > -0.05
+                    and r["backup_steps"] > 0 and r["wp_i"] >= 2)
+        else:
+            good = r["outcome"] == BCBF_EXPECTED[level]
+            if level == 1:
+                good = good and r["min_h"] > -0.05 and r["min_rollout_h"] < 3.0
+        ok = ok and good
+        rows.append((name, level, r, secs))
+        extra = (f"backup steps {r['backup_steps']}" if name == "gatekeeper"
+                 else f"min rollout h {r['min_rollout_h']:.4f}")
+        print(f"phase 24 [{card}] {name} level {level}: {r['outcome']} after "
+              f"{r['steps']} steps, waypoint {r['wp_i']}, min h {float(r['min_h']):.4f}, "
+              f"{extra}; {secs:.2f} s ({secs / (r['steps'] + 1) * 1e3:.2f} ms a step beside "
+              f"the other level runs, the level's safe spots included)"
+              f"{'' if good else ' FAILED'}")
+    print(f"phase 24 [{card}] {len(jobs)} captures {captures_s:.1f} s, then the {len(jobs)} "
+          f"level runs at once {levels_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not ok:
+        raise SystemExit("phase 24 failed: a warehouse run missed the JAX package's predicates")
+    return dict(first=first, rows=rows)
+
+
+def device_summary(prof, window_s):
+    """(busy share of the window, [(kernel, launches, ms)] of the five
+    longest by total time) from a ``torch.profiler`` run's CUDA events;
+    (None, []) when the trace holds no device time."""
+    by_name, busy_us = {}, 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        busy_us += us
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+    if busy_us == 0.0:
+        return None, []
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    return busy_us * 1e-6 / window_s, [(k, n, t * 1e-3) for k, (n, t) in top]
+
+
+def heterogeneous_fleet(dev, card):
+    """Phase 25: the tracked heterogeneous fleet (``parallel.fleet``, B2
+    once a group a step): ``tests/test_fleet.py``'s 24 robots for 200 steps
+    (no infeasible step or collision, closest pair > 0.45 m), then anchor 5
+    at ``examples/heterogeneous_fleet.py``'s defaults (3 x 1365 robots, 200
+    steps in chunks of 10): 3 B2 launches a step, finite states, each
+    group's first 64 robots' first 20 controls within QP_U_TOL of the steps
+    replayed with B2's plain version; one chunk traced.  Returns a dict."""
+    import numpy as np
+
+    from safe_control_tpu_torch.parallel import fleet as fl
+    from safe_control_tpu_torch.parallel import fleet_scenarios as fs
+    from safe_control_tpu_torch.sim import tracking
+    from safe_control_tpu_torch.solvers import qp_kernel as qpk
+    from safe_control_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    groups, specs, x0s, wps, n_wps, known = fs.corridor_fleet(dev)
+    state = fl.init_fleet(groups, specs, x0s, [w[:, 0] for w in wps])
+    t0 = time.perf_counter()
+    for _ in range(CORRIDOR_STEPS):
+        state = fl.step_fleet(groups, specs, state, wps, n_wps, known, True, 1, 0.5)
+    stats_c = fl.fleet_stats(groups, state)
+    pos = fl.fleet_positions(groups, state)
+    d = torch.cdist(pos[:, :2].double(), pos[:, :2].double())
+    d.fill_diagonal_(float("inf"))
+    min_pair = d.min().item()
+    corridor_s = time.perf_counter() - t0
+    corridor_ok = stats_c["infeasible_or_collision"] == 0 and min_pair > 0.45
+    print(f"phase 25 [{card}] corridor fleet (tests/test_fleet.py, 24 robots, {CORRIDOR_STEPS} "
+          f"steps, chunk 1, "
+          f"margin 0.5): {stats_c}, closest pair {min_pair:.4f} m; {corridor_s:.2f} s")
+
+    groups, specs, x0s, wps, n_wps, known = fs.lattice_fleet(FLEET_ANCHOR, dev)
+    chunk = FLEET_ANCHOR_CHUNK
+    total = sum(g.count for g in groups)
+
+    def step(s):
+        return fl.step_fleet(groups, specs, s, wps, n_wps, known, True, chunk, 0.3)
+
+    state = step(fl.init_fleet(groups, specs, x0s, [w[:, 0] for w in wps]))  # the first chunk
+    torch.cuda.synchronize()
+    s0 = state
+    qpk.LAUNCH_COUNT = 0
+    t0 = time.perf_counter()
+    for _ in range(FLEET_ANCHOR_STEPS // chunk):
+        state = step(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = qpk.LAUNCH_COUNT
+    step_ms = wall / FLEET_ANCHOR_STEPS * 1e3
+    finite = all(bool(torch.isfinite(t.x).all()) for t in state.trackers)
+    stats = fl.fleet_stats(groups, state)
+    progress = [t.goal_idx.float().mean().item() for t in state.trackers]
+
+    # the first two timed chunks again, group by group, recording each step
+    trajs, obs_chunks, s = [[] for _ in groups], [], s0
+    for _ in range(2):
+        obs = fl.coupling_obstacles(groups, s, known, 0.3)
+        obs_chunks.append(obs)
+        new = []
+        for gi, g in enumerate(groups):
+            st_g, tr = tracking.run(g.cfg, specs[gi], s.trackers[gi], wps[gi], n_wps[gi],
+                                    obs[gi], chunk)
+            trajs[gi].append(tr)
+            new.append(st_g)
+        s = fl.FleetState(tuple(new))
+    fleet_two = step(step(s0))
+    same_run = all(torch.equal(a.x, b.x) for a, b in zip(s.trackers, fleet_two.trackers))
+    per_group = []
+    for gi, g in enumerate(groups):
+        traj = {k: torch.cat([t[k] for t in trajs[gi]], dim=1) for k in ("x", "u")}
+        kernel_ms, same_x, dev_plain = replay(
+            g.cfg, specs[gi], s0.trackers[gi], traj,
+            lambda i, gi=gi: (wps[gi], n_wps[gi], obs_chunks[i // chunk][gi]), True)
+        qn, qm = 2, g.cfg.num_obs + 2
+        b2_bound, b2_by = bound(b2_flops(g.count, qn, qm, g.cfg.qp_iters),
+                                g.count * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+        per_group.append(dict(model=g.cfg.model_name, B=g.count, n=qn, m=qm, ms=kernel_ms,
+                              bound_ms=b2_bound, bound_by=b2_by, same_x=same_x,
+                              max_abs_err=max(dev_plain)))
+    b2_ms = sum(p["ms"] for p in per_group)
+
+    torch.cuda.synchronize()
+    t_trace = time.perf_counter()
+    with profiling.trace_to("build/trace_fleet") as prof:
+        t0 = time.perf_counter()
+        step(state)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    trace_s = time.perf_counter() - t_trace
+    busy, top = device_summary(prof, window)
+    print(f"phase 25 [{card}] anchor 5 (examples/heterogeneous_fleet.py): {total} agents "
+          f"({' + '.join(str(g.count) for g in groups)}), {FLEET_ANCHOR_STEPS} steps in chunks of "
+          f"{chunk}: {total * FLEET_ANCHOR_STEPS / wall:.1f} agent-steps/s, {step_ms:.3f} ms a "
+          f"step, QP kernel launches {launches} ({launches / FLEET_ANCHOR_STEPS:.2f} a step); "
+          f"mean waypoint progress per family (of 4) "
+          + ", ".join(f"{p:.3f}" for p in progress) + f"; {stats}; finite {finite}")
+    for p in per_group:
+        print(f"phase 25 [{card}] B2 at {p['model']} (n={p['n']}, m={p['m']}, B={p['B']}, "
+              f"400 iterations): {p['ms']:.4f} ms a launch, bound {p['bound_ms']:.4f} ms by "
+              f"{p['bound_by']}, {100 * p['bound_ms'] / p['ms']:.2f}% of it reached; replayed "
+              f"states equal the run's {p['same_x']}, max|du| of {N_GENERAL} robots against the "
+              f"plain version over {REPLAY['cbf_qp']} steps {p['max_abs_err']:.3e}")
+    busy_txt = "not measured (no device time in the trace)" if busy is None else \
+        f"{100 * busy:.1f}%"
+    print(f"phase 25 [{card}] B2 {b2_ms:.3f} ms of a {step_ms:.3f} ms step "
+          f"({100 * b2_ms / step_ms:.1f}%); the two replayed chunks equal step_fleet's "
+          f"{same_run}; one traced chunk ({window * 1e3:.1f} ms with the profiler on): device "
+          f"busy {busy_txt}; longest kernels "
+          + "; ".join(f"{k[:60]} x{n} {ms:.2f} ms" for k, n, ms in top)
+          + f"; the trace and its export {trace_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not corridor_ok:
+        raise SystemExit("phase 25 failed: the corridor fleet collided or went infeasible")
+    if launches != len(groups) * FLEET_ANCHOR_STEPS or not finite:
+        raise SystemExit("phase 25 failed: the anchor fleet did not make one B2 launch a group "
+                         "a step, or diverged")
+    if not (same_run and all(p["same_x"] and p["max_abs_err"] < QP_U_TOL for p in per_group)):
+        raise SystemExit("phase 25 failed: the anchor fleet disagrees with B2's plain version")
+    return dict(launches=launches, step_ms=step_ms, groups=per_group, b2_ms=b2_ms,
+                rate=total * FLEET_ANCHOR_STEPS / wall)
+
+
+def shielded_fleet(dev, card):
+    """Phase 26: the gatekeeper-shielded fleet (``parallel.fleet``):
+    ``tests/test_fleet_shielded.py``'s two walls of 32 robots (24 chunks of
+    5) and its head-on pair (30 chunks of 5) to that file's predicates, then
+    ``bench.py``'s 4,096-agent three-family anchor (17 chunks of 4 steps,
+    8 neighbours): collision-free after every chunk, shields engaged.
+    Returns a dict."""
+    from safe_control_tpu_torch.core.types import pad_obstacles
+    from safe_control_tpu_torch.parallel import fleet as fl
+    from safe_control_tpu_torch.parallel import fleet_scenarios as fs
+
+    t_phase = time.perf_counter()
+
+    def drive(groups, specs, state, wps, n_wps, known, chunks, n_steps, k):
+        min_clear = float("inf")
+        for _ in range(chunks):
+            state = fl.step_fleet_shielded(groups, specs, state, wps, n_wps, known,
+                                           n_steps=n_steps, k_neighbors=k)
+            min_clear = min(min_clear, fl.min_pairwise_clearance(groups, state))
+        return state, min_clear, fl.shielded_fleet_stats(groups, state)
+
+    groups, specs, x0s, wps, n_wps, known = fs.two_walls(32, dev)
+    t0 = time.perf_counter()
+    st, walls_clear, walls = drive(groups, specs, fl.init_shielded_fleet(groups, x0s), wps, n_wps,
+                                   known, 24, 5, 4)
+    adv = (st.x[0][:, 0].max().item(), st.x[1][:, 0].min().item())
+    walls_ok = (walls_clear > 0.0 and walls["backup_steps"] > 0 and walls["commits"] > 0
+                and adv[0] > 1.0 and adv[1] < 7.0)
+    walls_s = time.perf_counter() - t0
+    groups1, specs1 = fs.two_walls(1, dev)[:2]
+    pair_x0 = [torch.tensor([[0.0, 0.0, 0.0, 0.5]], device=dev),
+               torch.tensor([[6.0, 0.0, -0.5, 0.0]], device=dev)]
+    pair_wps = [torch.tensor([[[6.0, 0.0]]], device=dev), torch.tensor([[[0.0, 0.0]]], device=dev)]
+    _, pair_clear, pair = drive(groups1, specs1, fl.init_shielded_fleet(groups1, pair_x0),
+                                pair_wps, [1, 1], pad_obstacles(torch.zeros((0, 7)), 4,
+                                                                device=dev), 30, 5, 1)
+    pair_ok = pair_clear > 0.0 and pair["backup_steps"] > 0
+    print(f"phase 26 [{card}] two walls of 32 (tests/test_fleet_shielded.py, 120 steps): min "
+          f"clearance {walls_clear:.4f} m, {walls}, furthest DU x {adv[0]:.3f}, DI x "
+          f"{adv[1]:.3f}; {walls_s:.2f} s; head-on pair: min clearance {pair_clear:.4f} m, "
+          f"{pair}")
+
+    groups, specs, x0s, wps, n_wps, known = fs.three_family_anchor(SHIELDED_ROWS, dev)
+    total = sum(g.count for g in groups)
+
+    def step(s):
+        return fl.step_fleet_shielded(groups, specs, s, wps, n_wps, known, n_steps=4,
+                                      k_neighbors=8)
+
+    state = step(fl.init_shielded_fleet(groups, x0s))  # the bench's first chunk
+    min_clear, wall = fl.min_pairwise_clearance(groups, state), 0.0
+    for _ in range(SHIELDED_CHUNKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = step(state)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        min_clear = min(min_clear, fl.min_pairwise_clearance(groups, state))
+    stats = fl.shielded_fleet_stats(groups, state)
+    finite = all(bool(torch.isfinite(x).all()) for x in state.x)
+    anchor_ok = min_clear > 0.0 and stats["backup_steps"] > 0 and stats["commits"] > 0 and finite
+    rate = total * SHIELDED_CHUNKS * 4 / wall
+    print(f"phase 26 [{card}] three-family anchor (bench.py, {total} agents: "
+          f"{' + '.join(str(g.count) for g in groups)} DU + KB + DI, 17 chunks of 4 steps, 8 "
+          f"neighbours): {rate:.1f} agent-steps/s ({wall / SHIELDED_CHUNKS / 4 * 1e3:.2f} ms a "
+          f"step), min clearance after every chunk {min_clear:.4f} m, {stats}, finite {finite}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    if not (walls_ok and pair_ok and anchor_ok):
+        raise SystemExit("phase 26 failed: a shielded fleet collided or its shields never engaged")
+    return dict(rate=rate, min_clear=min_clear, stats=stats)
+
+
+def multi_device(dev, card):
+    """Phase 27: the multi-device path on the card, a NCCL process group of
+    world size 1 on an in-process store: ``run_sharded_sweep`` (256 DPCBF
+    scenarios, 20 steps in chunks of 10) and ``step_fleet_shielded_sharded``
+    (two walls of 16, 4 chunks of 3) equal to the single-device paths bit
+    for bit."""
+    import torch.distributed as dist
+
+    from safe_control_tpu_torch.core.spec import make_spec
+    from safe_control_tpu_torch.parallel import fleet as fl
+    from safe_control_tpu_torch.parallel import fleet_scenarios as fs
+    from safe_control_tpu_torch.parallel import mesh as mesh_mod
+    from safe_control_tpu_torch.parallel import monte_carlo as mc
+    from safe_control_tpu_torch.sim import tracking
+
+    t_phase = time.perf_counter()
+    leaves = torch.utils._pytree.tree_leaves
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = mesh_mod.scenario_mesh(1, device=dev)
+        model = "KinematicBicycle2D_DPCBF"
+        spec = make_spec(model, a_max=5.0, radius=0.3)
+        cfg = tracking.TrackerConfig(model_name=model, pos_controller="cbf_qp", dt=0.05,
+                                     num_obs=8, qp_iters=400)
+        wps = torch.tensor(DYN_WAYPOINTS, dtype=torch.float32, device=dev)
+        st0 = mc.dpcbf_sweep_init(cfg, spec, torch.Generator(device=dev).manual_seed(1), 256,
+                                  wps, device=dev)
+        single = st0
+        for _ in range(2):
+            single = mc.run_sweep_chunk(cfg, spec, single, wps, 2, 10)
+        final, res = mc.run_sharded_sweep(mesh, cfg, spec, st0, wps, 2, 20, chunk=10)
+        sweep_same = (all(torch.equal(a, b) for a, b in zip(leaves(single), leaves(final)))
+                      and [float(v) for v in mc.sweep_stats(single)]
+                      == [float(res.success_rate), float(res.collision_rate)])
+
+        groups, specs, x0s, fwps, n_wps, known = fs.two_walls(16, dev)
+        s_ref = fl.init_shielded_fleet(groups, x0s)
+        s_sh = mesh_mod.shard_leading_axis(mesh, s_ref)
+        wps_sh = mesh_mod.shard_leading_axis(mesh, fwps)
+        for _ in range(4):
+            s_ref = fl.step_fleet_shielded(groups, specs, s_ref, fwps, n_wps, known, n_steps=3)
+            s_sh = fl.step_fleet_shielded_sharded(groups, specs, s_sh, wps_sh, n_wps, known,
+                                                  mesh, n_steps=3)
+        s_sh = mesh_mod.gather_leading_axis(mesh, s_sh)
+        fleet_same = all(torch.equal(a, b) for a, b in zip(leaves(s_ref), leaves(s_sh)))
+        stats = fl.shielded_fleet_stats(groups, s_ref)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 27 [{card}] NCCL world size 1: run_sharded_sweep (256 scenarios, 20 steps) "
+          f"equal to run_sweep_chunk bit for bit {sweep_same} (success "
+          f"{float(res.success_rate):.4f}); step_fleet_shielded_sharded (2 x 16 robots, 4 "
+          f"chunks of 3) equal to step_fleet_shielded bit for bit {fleet_same} ({stats}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not (sweep_same and fleet_same):
+        raise SystemExit("phase 27 failed: a sharded path differs from its single-device path")
+    return dict(sweep_same=sweep_same, fleet_same=fleet_same)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1303,6 +1727,11 @@ def main() -> None:
     from safe_control_tpu_torch.solvers import mpc_du_kernel as duk
     from safe_control_tpu_torch.solvers import mpc_fused as mf
     from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+    t_start = time.perf_counter()
+
+    def elapsed(label):
+        print(f"elapsed before {label}: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1439,6 +1868,7 @@ def main() -> None:
           f"{b1_bound:.4f} ms by {b1_by} at {FP32_PEAK / 1e12:.0f} TFLOP/s, "
           f"{100 * b1_bound / ms:.2f}% of it reached")
 
+    elapsed("phase 5")
     # ---- phase 5: the QP ADMM kernel's build ---------------------------------
     _build.load_qp_admm_kernel()
     info = _build.BUILD_INFO["qp_admm_kernel"]
@@ -1581,6 +2011,7 @@ def main() -> None:
           f"{1e3 / cstep_ms_g:.1f} steps/s ({cstep_ms_g:.1f} ms/step) through the general "
           f"solve_qp")
 
+    elapsed("phase 9")
     # ---- phase 9: the fused MPC kernel's build ----------------------------------
     _build.load_mpc_fused_kernel()
     info = _build.BUILD_INFO["mpc_fused_kernel"]
@@ -1719,15 +2150,13 @@ def main() -> None:
         run = lambda: mf.solve_fused_batch(QUAD_3D, q3_spec, *ins, entry.DT, q3_cfg)
         run()
         f_sizes_ms[b_] = sync_time(run, reps)
-    run_fp()
-    f_plain_ms = sync_time(run_fp, 1)
+    f_plain_ms = sync_time(run_fp, 1)  # seconds a call: no warm-up
     fstep_g, _ = entry.build_fused_step(BATCH, device=dev, use_fused_kernel=False)
     fstep_kernel = lambda: fstep_k(*fargs)
     fstep_general = lambda: fstep_g(*fargs)
     fstep_kernel()
     fstep_ms_k = sync_time(fstep_kernel, 5)
-    fstep_general()
-    fstep_ms_g = sync_time(fstep_general, 1)
+    fstep_ms_g = sync_time(fstep_general, 1)  # seconds a call: no warm-up
     print(f"phase 12 [{card}] Quad3D N=10: fused kernel at B=1 {f_sizes_ms[1]:.4f} ms, "
           f"B={BATCH} {f_ms:.4f} ms, B=16384 {f_sizes_ms[16384]:.4f} ms")
     print(f"phase 12 [{card}] B={BATCH} Quad3D N=10: fused kernel {f_ms:.3f} ms/solve-batch vs "
@@ -1748,7 +2177,8 @@ def main() -> None:
         solve_dispatch calls (CHAIN through the kernel, CHAIN_GENERAL not)."""
         one_step, a = entry.build_fused_step(1, model_name=model_name, horizon=horizon,
                                              device=dev, use_fused_kernel=fused)
-        one_step(*a)  # warm-up: first use of every launch path
+        if fused:  # warm-up: first use of every launch path (the general solve is seconds)
+            one_step(*a)
         x, up, U = a[0], a[3], a[4]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1766,6 +2196,7 @@ def main() -> None:
           f"kernel vs {lat[(QUAD_3D, False)]:.1f} us through the general solve; DU N=8 "
           f"{lat[(DYNAMIC_UNICYCLE_2D, True)]:.1f} vs {lat[(DYNAMIC_UNICYCLE_2D, False)]:.1f} us")
 
+    elapsed("phase 13")
     # ---- phases 13-15: the tracking loop --------------------------------------
     single_robot(dev, card, 13, {"model": DYNAMIC_UNICYCLE_2D, "w_max": 0.5, "a_max": 1.0,
                                  "radius": 0.25, "mpc_horizon": 8, "use_fused_kernel": True},
@@ -1775,18 +2206,28 @@ def main() -> None:
     qp_fleet = fleet(dev, card, "cbf_qp", FLEET_DI_STEPS)
     du_fleet = fleet(dev, card, "mpc_cbf", FLEET_DU_STEPS)
 
+    elapsed("phase 16")
     # ---- phases 16-19: the later models and MPC variants ------------------------
     b3_shapes, b3_new_err, b3_new_launches = new_b3_models(dev, card, b3_report)
     dyn = dynamic_env(dev, card)
     arm_shape = manipulator_cbf_qp(dev, card)
     mpc_variants(dev, card)
 
+    elapsed("phase 20")
     # ---- phases 20-23: the drift models on B3, the sweep, MPCC, the drift car ------
     drift_shapes, drift_err, drift_bits = drift_b3_models(dev, card, b3_report)
     sweep = monte_carlo_sweep(dev, card)
     mpcc_alone(dev, card)
     drift_scenario(dev, card)
 
+    elapsed("phase 24")
+    # ---- phases 24-27: the warehouse, the fleets, the multi-device path ----------
+    warehouse(dev, card)
+    het = heterogeneous_fleet(dev, card)
+    shielded_fleet(dev, card)
+    multi_device(dev, card)
+
+    elapsed("the JSON lines")
     print(json.dumps({"kernels": [{
         "name": "mpc_du_kernel",
         "route": "cuda",
@@ -1814,10 +2255,16 @@ def main() -> None:
         "dynamic_env_ms_per_launch": dyn[2],
         "sweep_launches_per_step": sweep[0] / SWEEP_STEPS,
         "sweep_ms_per_launch": sweep[2],
+        "fleet_launches_per_step": het["launches"] / FLEET_ANCHOR_STEPS,
+        "fleet_ms_per_launch": {p["model"]: p["ms"] for p in het["groups"]},
         "shapes": [arm_shape, {"shape": f"DPCBF sweep n=2 m=10 B={SWEEP_BATCH}",
                                "ms": sweep[2], "bound_ms": sweep[4], "bound_by": sweep[5],
-                               "max_abs_err": sweep[3]}],
-        "max_abs_err": max(qp_dx, qp_dy, arm_shape["max_abs_err"], dyn[3], sweep[3]),
+                               "max_abs_err": sweep[3]}]
+        + [{"shape": f"fleet {p['model']} n={p['n']} m={p['m']} B={p['B']}", "ms": p["ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+            "max_abs_err": p["max_abs_err"]} for p in het["groups"]],
+        "max_abs_err": max(qp_dx, qp_dy, arm_shape["max_abs_err"], dyn[3], sweep[3],
+                           *(p["max_abs_err"] for p in het["groups"])),
         "ms": qp_ms,
         "plain_ms": qp_plain_ms,
         "bound_ms": b2_bound,

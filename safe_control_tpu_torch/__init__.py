@@ -15,6 +15,9 @@ hand-written CUDA kernels (``solvers/mpc_du_kernel.py``,
 ``solvers/qp_kernel.py``, ``solvers/mpc_fused.py``; sources in ``csrc/``),
 the tracking loop batched over robots (``sim/tracking.py``,
 ``sim/controller.py``), all 13 models, MPCC and the shielded drift-car
-simulator (``sim/drift_sim.py``), and the Monte Carlo sweep on one device
-(``parallel/monte_carlo.py``).
+simulator (``sim/drift_sim.py``), the warehouse case study
+(``sim/warehouse_sim.py``), heterogeneous and shielded fleets
+(``parallel/fleet.py``), and the Monte Carlo sweep, on one device or split
+over a ``torch.distributed`` process group (``parallel/monte_carlo.py``,
+``parallel/mesh.py``).
 """

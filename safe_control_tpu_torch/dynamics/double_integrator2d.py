@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from safe_control_tpu_torch.core.types import device_constant
 from safe_control_tpu_torch.dynamics.base import angle_normalize, masked_apply, spec_vector
 
 N_STATES = 4
@@ -34,9 +35,9 @@ def f(x, spec):
 
 
 def g(x, spec):
-    gm = torch.tensor(
-        [[0.0, 0.0], [0.0, 0.0], [1.0, 0.0], [0.0, 1.0]], dtype=x.dtype, device=x.device
-    )
+    # A shared device constant: no host copy, so a CUDA graph can capture it.
+    gm = device_constant(((0.0, 0.0), (0.0, 0.0), (1.0, 0.0), (0.0, 1.0)), dtype=x.dtype,
+                         device=x.device)
     return gm.expand(x.shape[:-1] + (N_STATES, N_CONTROLS))
 
 

@@ -15,6 +15,12 @@ import torch
 
 from safe_control_tpu_torch.attitude.gatekeeper_att import GatekeeperAttConfig, GatekeeperAttState
 from safe_control_tpu_torch.core.spec import RobotSpec
+from safe_control_tpu_torch.parallel.fleet import (
+    FleetGroup,
+    FleetState,
+    ShieldedFleetState,
+    ShieldedGroup,
+)
 from safe_control_tpu_torch.parallel.monte_carlo import SweepState
 from safe_control_tpu_torch.perception.fov import ObsMemory
 from safe_control_tpu_torch.perception.grid import GridSpec
@@ -154,3 +160,41 @@ def tracker_state_from_numpy(state, device=None, dtype=torch.float32) -> Tracker
         att_gk=GatekeeperAttState(*(conv(getattr(state.att_gk, f))
                                     for f in GatekeeperAttState._fields)),
     )
+
+
+def fleet_group_from_jax(g) -> FleetGroup:
+    """A :class:`FleetGroup` with the JAX group's count and radius and its
+    ``TrackerConfig`` converted."""
+    return FleetGroup(cfg=tracker_config_from_jax(g.cfg), count=g.count,
+                      robot_radius=g.robot_radius)
+
+
+def shielded_group_from_jax(g) -> ShieldedGroup:
+    """A :class:`ShieldedGroup` with the JAX group's fields and its
+    ``GatekeeperConfig`` converted."""
+    values = _fields(ShieldedGroup, g)
+    values["gk"] = gatekeeper_config_from_jax(g.gk)
+    return ShieldedGroup(**values)
+
+
+def fleet_state_from_numpy(state, device=None, dtype=torch.float32) -> FleetState:
+    """A :class:`FleetState` from the JAX ``FleetState``'s batched trackers."""
+    return FleetState(trackers=tuple(tracker_state_from_numpy(t, device, dtype)
+                                     for t in state.trackers))
+
+
+def shielded_fleet_state_from_numpy(state, device=None,
+                                    dtype=torch.float32) -> ShieldedFleetState:
+    """A :class:`ShieldedFleetState` from the JAX one: per group the states,
+    the goal indices and counters (as int64), and the ``jax.vmap``-batched
+    ``GatekeeperState``."""
+    conv = lambda parts: tuple(_array(a, device, dtype) for a in parts)
+    return ShieldedFleetState(
+        x=conv(state.x), goal_idx=conv(state.goal_idx),
+        gk=tuple(gatekeeper_state_from_numpy(s, device, dtype) for s in state.gk),
+        backup_steps=conv(state.backup_steps), commits=conv(state.commits))
+
+
+def ghosts_from_numpy(ghosts, device=None) -> torch.Tensor:
+    """A warehouse ghost table ``(G, 5)`` as a float32 tensor."""
+    return torch.as_tensor(np.array(ghosts), dtype=torch.float32, device=device)

@@ -9,9 +9,13 @@ tuple of tensors that ``utils/checkpoint.py`` saves and restores.
 
 ``dpcbf_sweep_init`` draws from a ``torch.Generator``; it cannot reproduce
 ``jax.random``'s stream, so a comparison with the JAX package feeds the JAX
-init's arrays through ``interop.sweep_state_from_numpy``.  The sharded sweep
-(``run_sharded_sweep``, the mesh and the ``psum`` of ``sweep_stats``) waits
-for ROADMAP A.7 and raises ``NotImplementedError``.
+init's arrays through ``interop.sweep_state_from_numpy``.
+
+``run_sharded_sweep`` splits the scenarios over the ranks of a
+``parallel.mesh.ScenarioMesh``: each rank advances its block chunk by chunk,
+the statistics are summed over the ranks (``sweep_stats(state, mesh)``) and
+the final state is gathered, so that every rank holds what the one-device
+sweep holds.
 """
 
 from __future__ import annotations
@@ -21,9 +25,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from safe_control_tpu_torch.parallel import mesh as mesh_mod
 from safe_control_tpu_torch.sim import tracking
-
-_A7 = "the multi-device sweep is not ported yet (ROADMAP A.7)"
 
 
 class SweepState(NamedTuple):
@@ -91,18 +94,33 @@ def run_sweep_chunk(cfg: tracking.TrackerConfig, spec, state: SweepState, waypoi
     return final
 
 
-def sweep_stats(state: SweepState, axis_name: Optional[str] = None):
+def sweep_stats(state: SweepState, axis_name: Optional[mesh_mod.ScenarioMesh] = None):
     """(success rate, collision rate) of the batch: the shares of RET_DONE
-    and RET_INFEASIBLE return codes."""
-    if axis_name is not None:
-        raise NotImplementedError(f"sweep_stats over a mesh axis: {_A7}")
+    and RET_INFEASIBLE return codes.  ``axis_name``: a ``ScenarioMesh`` (the
+    JAX package's mesh axis) over whose ranks the counts are summed."""
     ret = state.tracker.ret
-    n = ret.shape[0]
-    succ = (ret == tracking.RET_DONE).to(torch.float32).sum()
-    coll = (ret == tracking.RET_INFEASIBLE).to(torch.float32).sum()
-    return succ / n, coll / n
+    counts = torch.stack([(ret == tracking.RET_DONE).to(torch.float32).sum(),
+                          (ret == tracking.RET_INFEASIBLE).to(torch.float32).sum(),
+                          torch.full((), ret.shape[0], dtype=torch.float32, device=ret.device)])
+    if axis_name is not None:
+        counts = mesh_mod.psum_scenario(counts, axis_name)
+    return counts[0] / counts[2], counts[1] / counts[2]
 
 
-def run_sharded_sweep(*args, **kwargs):
-    """The sweep over a device mesh: waits for ROADMAP A.7."""
-    raise NotImplementedError(f"run_sharded_sweep: {_A7}")
+def run_sharded_sweep(mesh: mesh_mod.ScenarioMesh, cfg: tracking.TrackerConfig, spec,
+                      state: SweepState, waypoints, n_waypoints, n_steps: int, chunk: int = 50):
+    """The sweep over the ranks of ``mesh``: ``ceil(n_steps / chunk)`` chunks
+    of ``chunk`` steps (as the JAX package counts them) on each rank's block
+    of ``state`` (the whole batch, the same on every rank; the batch must
+    divide the world size), the rates summed over the ranks after every
+    chunk.  Returns ``(final SweepState, SweepResult)``, both whole on every
+    rank."""
+    local = mesh_mod.shard_leading_axis(mesh, state)
+    wps = mesh_mod.replicate(mesh, torch.as_tensor(waypoints))
+    s = c = None
+    for _ in range(math.ceil(n_steps / chunk)):
+        local = run_sweep_chunk(cfg, spec, local, wps, n_waypoints, chunk)
+        s, c = sweep_stats(local, mesh)
+    tracker, obs = mesh_mod.gather_leading_axis(mesh, (local.tracker, local.obs))
+    final = SweepState(tracker=tracker, obs=obs, steps_done=local.steps_done)
+    return final, SweepResult(ret=tracker.ret, x=tracker.x, success_rate=s, collision_rate=c)

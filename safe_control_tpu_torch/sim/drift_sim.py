@@ -13,10 +13,11 @@ Port of ``safe_control_tpu/sim/drift_sim.py``.  One control step:
    step, and the MPCC prediction of each step.
 
 On a card the step is captured once per simulator as a
-``torch.cuda.CUDAGraph`` (at the first ``step``) and replayed every step:
-the state, the last input, the plant friction, the step index and the
-obstacle cars are copied into the graph's static tensors before a replay.
-``reset`` keeps the graph, as the JAX package keeps its compiled program.
+``torch.cuda.CUDAGraph`` (at the first ``step``, ``core.graphs.CapturedStep``)
+and replayed every step: the state, the last input, the plant friction, the
+step index and the obstacle cars are copied into the graph's static tensors
+before a replay.  ``reset`` keeps the graph, as the JAX package keeps its
+compiled program.
 A capture that fails raises; ``graph=False`` (asked for explicitly) runs
 the same step eagerly on the card.  On the CPU the step runs eagerly.  Each
 step reads the device once: the new state, the flags, h_min and the
@@ -26,12 +27,12 @@ prediction, in one copy.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from safe_control_tpu_torch.core.graphs import CapturedStep
 from safe_control_tpu_torch.core.spec import DRIFTING_CAR
 from safe_control_tpu_torch.dynamics import get_model
 from safe_control_tpu_torch.shielding import backup as bk
@@ -81,10 +82,6 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and (a.index is None or b.index is None or a.index == b.index)
 
 
-def _flat(inputs: _Inputs) -> list:
-    return [*inputs.mstate, *inputs.gstate, *inputs[2:]]
-
-
 class DriftingCarSimulator:
     """Collision-checked shielded drift-car simulation.
 
@@ -113,11 +110,7 @@ class DriftingCarSimulator:
         self.path = path
         self.cfg = cfg
         self.model = get_model(DRIFTING_CAR)
-        self.use_graph = graph and self.device.type == "cuda"
-        self._graph = None
-        self._static_in = None
-        self._static_out = None
-        self.capture_seconds = None
+        self._step = CapturedStep(self._step_fn, graph and self.device.type == "cuda")
         self._gcfg = gk.GatekeeperConfig(
             model_name=DRIFTING_CAR, dt=cfg.dt, nominal_steps=cfg.nominal_steps,
             backup_steps=cfg.backup_steps, event_offset_steps=cfg.event_offset_steps,
@@ -226,12 +219,7 @@ class DriftingCarSimulator:
             x=x, u_prev=torch.zeros((1, 2), device=dev),
             mu=torch.zeros((), device=dev), t_idx=torch.zeros((), dtype=torch.long, device=dev),
             cars=torch.as_tensor(self.env.obstacle_cars_np, device=dev))
-        if self._static_in is not None:
-            for dst, src in zip(_flat(self._static_in), _flat(fresh)):
-                dst.copy_(src)
-            self._inputs = self._static_in
-        else:
-            self._inputs = fresh
+        self._inputs = fresh
         self._cars_host = self.env.obstacle_cars_np
         self.t_idx = 0
         self._x_host = np.asarray(x0, dtype=np.float32).reshape(8)
@@ -253,47 +241,14 @@ class DriftingCarSimulator:
     def gstate(self) -> gk.GatekeeperState:
         return self._inputs.gstate
 
-    def _capture(self):
-        """Warm up once on a side stream (building every device constant),
-        then capture ``_step_fn`` on the static inputs."""
-        t0 = time.perf_counter()
-        self._static_in = self._inputs
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._step_fn(self._static_in)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        try:  # keep the cudaGraph_t, for graph_nodes()
-            self._graph = torch.cuda.CUDAGraph(keep_graph=True)
-        except TypeError:
-            self._graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._graph):
-            self._static_out = self._step_fn(self._static_in)
-        if hasattr(self._graph, "instantiate"):
-            self._graph.instantiate()
-        torch.cuda.synchronize(self.device)
-        self.capture_seconds = time.perf_counter() - t0
+    @property
+    def capture_seconds(self):
+        """The capture's wall time (warm-up included) once it is made."""
+        return self._step.capture_seconds
 
     def graph_nodes(self):
-        """Nodes of the captured graph (``cudaGraphGetNodes``), if PyTorch
-        exposes the graph and the CUDA runtime library loads (else None)."""
-        if self._graph is None:
-            return None
-        import ctypes
-
-        try:
-            raw = self._graph.raw_cuda_graph()
-        except (AttributeError, RuntimeError):
-            return None
-        for name in ("libcudart.so.12", "libcudart.so", "libcudart.so.13"):
-            try:
-                lib = ctypes.CDLL(name)
-            except OSError:
-                continue
-            n = ctypes.c_size_t(0)
-            err = lib.cudaGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(n))
-            return int(n.value) if err == 0 else None
-        return None
+        """Nodes of the captured graph, or None (see ``CapturedStep``)."""
+        return self._step.graph_nodes()
 
     def step(self) -> bool:
         """Advance one control step; returns True if a collision occurred."""
@@ -306,16 +261,8 @@ class DriftingCarSimulator:
             self._cars_host = cars_now
         inp.mu.fill_(mu)
         inp.t_idx.fill_(self.t_idx)
-        if self.use_graph:
-            if self._graph is None:
-                self._capture()
-            self._graph.replay()
-            mstate, gstate, x_next, u, report = self._static_out
-            for dst, src in zip(_flat(inp), [*mstate, *gstate, x_next, u]):
-                dst.copy_(src)
-        else:
-            mstate, gstate, x_next, u, report = self._step_fn(inp)
-            self._inputs = inp._replace(mstate=mstate, gstate=gstate, x=x_next, u_prev=u)
+        mstate, gstate, x_next, u, report = self._step(inp)
+        self._inputs = inp._replace(mstate=mstate, gstate=gstate, x=x_next, u_prev=u)
         rep = report.cpu().numpy()
         self.t_idx += 1
         self._x_host = rep[:8].copy()

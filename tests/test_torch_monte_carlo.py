@@ -11,7 +11,10 @@
   reproducibility;
 - a checkpoint saved mid-sweep and restored resumes bit for bit;
 - the metrics accumulation and the CSV logger;
-- the multi-device pieces raise, naming ROADMAP A.7.
+- ``dpcbf_sweep_init`` refuses the default CUDA device without a card.
+
+The multi-device sweep is held to this one-device path in
+``tests/test_torch_parallel.py``.
 """
 
 import math
@@ -26,7 +29,6 @@ from safe_control_tpu.core.spec import KINEMATIC_BICYCLE_2D_DPCBF, make_spec
 from safe_control_tpu.parallel import monte_carlo as jmc
 from safe_control_tpu.sim import tracking as jt
 from safe_control_tpu_torch import interop
-from safe_control_tpu_torch.parallel import mesh as tmesh
 from safe_control_tpu_torch.parallel import monte_carlo as tmc
 from safe_control_tpu_torch.utils import checkpoint as ckpt
 from safe_control_tpu_torch.utils import metrics as metrics_mod
@@ -119,18 +121,11 @@ def test_metrics_accumulation(tmp_path):
     assert [float(v) for v in lines[1].split(",")] == pytest.approx([1.0, 2.0, 0.5, 0.1, 0.2])
 
 
-def test_multi_device_pieces_wait_for_a7():
-    st = tmc.dpcbf_sweep_init(CFG, SPEC, torch.Generator().manual_seed(0), 2, WAYPOINTS,
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tmc.run_sharded_sweep(None, CFG, SPEC, st, WAYPOINTS, 2, 10)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tmc.sweep_stats(st, axis_name="scenario")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tmesh.scenario_mesh()
-    if not torch.cuda.is_available():
-        with pytest.raises((RuntimeError, AssertionError)):
-            tmc.dpcbf_sweep_init(CFG, SPEC, torch.Generator(), 2, WAYPOINTS)
+def test_sweep_init_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        tmc.dpcbf_sweep_init(CFG, SPEC, torch.Generator(), 2, WAYPOINTS)
 
 
 @pytest.fixture
