@@ -48,7 +48,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    reached.
 9. Reports the generic fused MPC kernel's build: seconds, threads a block,
    and registers, stack, spills, dynamic shared memory and blocks an SM (the
-   CUDA occupancy calculator) per model instantiation.
+   CUDA occupancy calculator) per model instantiation; every model has two,
+   the shared-memory layout and the wide one (phase 28b).
 10. Holds the fused kernel against its plain version (max |du| < 5e-3,
     max |dxs| < 5e-3, viol atol 1e-3, the JAX package's kernel-class
     envelope): (a) Quad3D N=10 at B=4096, cold start and the warm start one
@@ -196,6 +197,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
     (60, 12) circle; gated on the code, x within 2 m of the script's and the
     clearance under the radius).  The script's 8x3 default lands in the JAX
     package; the port's 8x3 route is not run here (about 6x the RTI graph).
+28b. B3 at VTOL2D N=30 (M=120, the RTI budget), past a block's shared
+    memory: the scaled Jc in the kernel's global workspace.  Its build (the
+    wide instantiation's registers, shared bytes, workspace bytes, blocks
+    an SM); the kernel against its plain version on 64 corridor starts
+    (``vtol_starts``) at B=1 and B=64, in the kernel envelope, bits
+    printed; ms a launch at B=1, 64 and 4096 (the 64 starts repeated), each
+    with its operation count and bound (``b3_flops`` at the 2x2 budget, the
+    active rows counted on the plain version's run); the plain version's ms.
+    Then phase 28's corridor with ``use_fused_kernel``, through the
+    controller's captured graph: phase 28's predicates (no ground strike, x
+    > 25 m, pillar clearance > 0.3 m), one B3 launch a replayed step and no
+    fallback, the first replay equal to the capture's eager warm-up, ms a
+    replayed step.
 29. ``tests/test_unknown_env_e2e.py``'s DI CBF-QP scenario whole (2400
     steps of one captured ``tracking.step``): RET_DONE, never
     RET_INFEASIBLE, at least 5 memory rows, no unknown obstacle touched, one
@@ -229,10 +243,14 @@ pop-in curve's 8x3 point, run examples.vtol at --rti only, run
 examples.unknown_env through the general solve for UNKNOWN_GENERAL_TF
 seconds, and shorten the command lines that repeat earlier phases
 (EXAMPLE_RUNS).  Phase 24 runs its gatekeeper levels and
-its BackupCBF levels at once, in two host threads on two CUDA streams.
+its BackupCBF levels at once, in two host threads on two CUDA streams, and
+it runs between phases 8 and 9: it launches no kernel, and it covers the
+fused kernel's build (26 instantiations, two a model: about 2 minutes) that
+phase 9 waits for.
 With phases 28-31 (closed-loop scenarios of host-bound general-solve
 graphs) the script's budget is 950 s of its 1200 s limit; a new phase
-needs a cut elsewhere first.
+needs a cut elsewhere first.  Phase 28b (15-30 s) came without one:
+phase 24's move before phase 9 keeps the longer fused build off the clock.
 
 Every time is printed beside the card's name and power limit, and each
 phase's wall seconds from phase 13 on.  Prints one JSON line of per-kernel
@@ -320,18 +338,22 @@ def ptxas_summary(report: str, keep=None) -> str:
     return " | ".join(out)
 
 
-def fused_ptxas(report: str) -> str:
-    """Registers, stack and spills of each model instantiation of the fused
-    kernel (the model is the mangled template argument)."""
-    out, model, frame = [], "", ""
+def fused_ptxas(report: str) -> list:
+    """``(model, wide, registers, stack and spills)`` of each instantiation
+    of the fused kernel: the model is the mangled template argument, and
+    ``wide`` its second one (the layout with a global workspace; False for
+    a build without it)."""
+    out, model, wide, frame = [], "", False, ""
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             found = re.search(r"IN9mpc_fused(\d+)", ln)
             model = ln[found.end():found.end() + int(found.group(1))] if found else "?"
+            wide = found is not None and ln[found.end() + int(found.group(1)):].startswith(
+                "ELb1E")
         elif "bytes stack frame" in ln:
             frame = ln.strip()
         elif "Used" in ln and "registers" in ln:
-            out.append((model, ln.split("Used")[1].split(",")[0].strip(), frame))
+            out.append((model, wide, ln.split("Used")[1].split(",")[0].strip(), frame))
     return out
 
 
@@ -477,22 +499,31 @@ def b2_flops(B, n, m, iters, stages=8):
     return B * (iters * sweep + stages * stage + m * 2 * tri)
 
 
-def b3_flops(B, n, m, N, K, NC, step_ops, active_rows, h_ops=6, rel_deg=1):
+def b3_flops(B, n, m, N, K, NC, step_ops, active_rows, h_ops=6, rel_deg=1, outer=8, newton=3):
     """Operations of B3's solve for a model of ``step_ops`` operations a
-    ``step`` and ``h_ops`` a barrier value (6: a circle), from its code.  A
-    dual-number operation is counted as two (a value and a tangent: the
-    Quad3D step multiplies duals by constants only).  Relative degree 2
-    adds a step and K barrier values a stage, and 6 operations a CBF row."""
-    M, NR, steps = N * m, N * (n + m), 24
+    ``step`` and ``h_ops`` a barrier value (6: a circle), from its code, at
+    ``outer`` x ``newton`` iterations.  A dual-number operation is counted
+    as two (a value and a tangent: the Quad3D step multiplies duals by
+    constants only).  Relative degree 2 adds a step and K barrier values a
+    stage, and 6 operations a CBF row."""
+    M, NR, steps = N * m, N * (n + m), outer * newton
     tri = M * (M + 1) // 2
     stage = rel_deg * (step_ops + K * h_ops) + 2 * n + (3 if rel_deg == 1 else 9) * K
     rollout = K * h_ops + N * (stage + 2 * (NC - N * K) // (2 * N)) + 2 * N * m
-    newton = (M * (2 * rollout + NC) + 2 * M * (NR + NC) + 2 * tri * NR + 2 * M + 3 * tri
+    newton_ops = (M * (2 * rollout + NC) + 2 * M * (NR + NC) + 2 * tri * NR + 2 * M + 3 * tri
               + sum(i * (i + 1) for i in range(M)) + tri + 2 * M * M + 2 * M * M
               + 6 * (rollout + 4 * NR + 7 * NC) + 12 * M)
-    per_problem = (M * 2 * rollout + NC * 2 * M + steps * newton
-                   + 8 * (rollout + 3 * NC) + rollout + NC)
+    per_problem = (M * 2 * rollout + NC * 2 * M + steps * newton_ops
+                   + outer * (rollout + 3 * NC) + rollout + NC)
     return B * per_problem + active_rows * 2 * tri
+
+
+def b3_bytes(B, n, m, N, K):
+    """Bytes B3 must move for B problems: x0, goal, obstacles, u_prev and the
+    warm start read once, U, the rollout and viol written once (its global
+    workspace is the kernel's own, and not counted)."""
+    M = N * m
+    return B * (2 * n + 7 * K + m + M + M + (N + 1) * n + 1) * 4
 
 
 def passes_waypoints(path):
@@ -736,23 +767,26 @@ class UnitWeights:
             del self.weights[name]
 
 
-def b3_pair(label, model, sp, args, cf, errs, active=None, bits=None):
+def b3_pair(label, model, sp, args, cf, errs, active=None, bits=None, plain_ms=None):
     """B3 against its plain version on ``args``: gated in the kernel
     envelope, printed, the largest difference appended to ``errs`` (and
     whether the bits agree to ``bits``, when given); the plain version's
-    activation tests counted by ``active`` when given.  Returns the
+    activation tests counted by ``active`` when given, and its wall
+    milliseconds appended to ``plain_ms`` when given.  Returns the
     kernel's result."""
+    import contextlib
+
     from safe_control_tpu_torch import entry
     from safe_control_tpu_torch.solvers import mpc_fused as mf
 
     kern = mf.solve_fused_batch(model, sp, *args, entry.DT, cf)
     torch.cuda.synchronize()
-    if active is None:
+    t0 = time.perf_counter()
+    with active if active is not None else contextlib.nullcontext():
         plain = mf.solve_fused_batch_reference(model, sp, *args, entry.DT, cf)
-    else:
-        with active:
-            plain = mf.solve_fused_batch_reference(model, sp, *args, entry.DT, cf)
     torch.cuda.synchronize()
+    if plain_ms is not None:
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
     du_ = (kern.U - plain.U).abs().max().item()
     dxs = (kern.xs - plain.xs).abs().max().item()
     dv = (kern.viol - plain.viol).abs().max().item()
@@ -801,9 +835,9 @@ def new_b3_models(dev, card, b3_report):
             run()
             ms = sync_time(run, 3)
             mdl = get_model(model)
-            n, m, M = mdl.N_STATES, mdl.N_CONTROLS, 10 * mdl.N_CONTROLS
+            n, m = mdl.N_STATES, mdl.N_CONTROLS
             ops = b3_flops(BATCH, n, m, 10, 5, nc, step_ops, active.total(), h_ops, mdl.REL_DEG)
-            bnd, by = bound(ops, BATCH * (2 * n + 35 + m + 2 * M + 11 * n + 1) * 4)
+            bnd, by = bound(ops, b3_bytes(BATCH, n, m, 10, 5))
             print(f"phase 16 [{card}] {model} N=10 B={BATCH}: fused kernel {ms:.4f} ms a launch, "
                   f"{ops:.4e} operations ({active.total()} active constraint rows), bound "
                   f"{bnd:.4f} ms by {by}, {100 * bnd / ms:.2f}% of it reached")
@@ -1175,9 +1209,9 @@ def drift_b3_models(dev, card, b3_report):
             run = lambda: mf.solve_fused_batch(model, sp, *big, entry.DT, cf)
             ms = sync_time(run, 3)
             mdl = get_model(model)
-            n, m, M = mdl.N_STATES, mdl.N_CONTROLS, 10 * mdl.N_CONTROLS
+            n, m = mdl.N_STATES, mdl.N_CONTROLS
             ops = b3_flops(BATCH, n, m, 10, 5, nc, step_ops, active.total(), h_ops, mdl.REL_DEG)
-            bnd, by = bound(ops, BATCH * (2 * n + 35 + m + 2 * M + 11 * n + 1) * 4)
+            bnd, by = bound(ops, b3_bytes(BATCH, n, m, 10, 5))
             print(f"phase 20 [{card}] {model} N=10 B={BATCH}: fused kernel {ms:.4f} ms a launch, "
                   f"{ops:.4e} operations ({active.total()} active constraint rows), bound "
                   f"{bnd:.4f} ms by {by}, {100 * bnd / ms:.2f}% of it reached")
@@ -1851,34 +1885,28 @@ def graph_report(ctrl):
             so.graph_nodes())
 
 
-def vtol(dev, card):
-    """Phase 28: the VTOL corridor and the pop-in curve of
-    ``tests/test_vtol_e2e.py`` at the RTI budget through the captured
-    controller step, then ``examples.vtol --rti`` over the whole route."""
-    import contextlib
-    import io
+# examples/test_vtol.py's robot (phase 28 and, with use_fused_kernel, 28b).
+VTOL_ROBOT = {"model": "VTOL2D", "radius": 0.6, "v_max": 20.0, "reached_threshold": 1.0,
+              "mpc_horizon": 30, "mpc_rti": True}
 
+
+def vtol_controller(dev, robot_spec):
+    """A ``LocalTrackingController`` at the corridor's start, its first step
+    taken (the capture on the card): returns ``(ctrl, pillar rows, s of the
+    first step, max difference of the first replay from the capture's
+    warm-up (an eager step on the card from the same inputs), ms of that
+    eager step, capture s, graph nodes)``."""
     import numpy as np
 
     from safe_control_tpu_torch.envs.env import Env
-    from safe_control_tpu_torch.examples import vtol as vtol_example
-    from safe_control_tpu_torch.sim import tracking
     from safe_control_tpu_torch.sim.controller import LocalTrackingController
 
-    t_phase = time.perf_counter()
-    # examples/test_vtol.py's robot: the same configuration, so that
-    # examples.vtol below replays this graph.  The test's 8 selection slots
-    # become the example's 10; the MPC reads the first 5, the same rows.
-    spec = {"model": "VTOL2D", "radius": 0.6, "v_max": 20.0, "reached_threshold": 1.0,
-            "mpc_horizon": 30, "mpc_rti": True}
     pillars = np.hstack([np.asarray(VTOL_PILLARS), np.zeros((4, 4))])
-    ctrl = LocalTrackingController([2.0, 10.0, 0.0, 20.0, 0.0, 0.0], spec,
+    ctrl = LocalTrackingController([2.0, 10.0, 0.0, 20.0, 0.0, 0.0], robot_spec,
                                    controller_type={"pos": "mpc_cbf"}, dt=0.05,
                                    env=Env(width=75.0, height=20.0), device=dev)
     ctrl.obs = pillars
     ctrl.set_waypoints(np.asarray(VTOL_WPS))
-    # the first replayed step against the capture's warm-up, an eager step on
-    # the card from the same inputs
     t0 = time.perf_counter()
     ctrl.control_step()
     sync(dev)
@@ -1893,30 +1921,58 @@ def vtol(dev, card):
         dx_first = float(torch.stack(diffs).max())  # NaN propagates
     eager_ms = (so.warmup_seconds or float("nan")) * 1e3
     capture_s, nodes = graph_report(ctrl)
+    return ctrl, pillars, first_s, dx_first, eager_ms, capture_s, nodes
 
-    def fly(n_steps, popin=None):
-        """The corridor from x0: returns (x, min clearance, ground strike,
-        steps, ms a replayed step)."""
-        ctrl.obs = np.zeros((0, 7)) if popin else pillars
-        ctrl.set_waypoints(np.asarray(VTOL_WPS))
-        min_pillar, ground, x = np.inf, False, None
-        t0, steps = time.perf_counter(), 0
-        for t in range(n_steps):
-            if popin is not None and t == popin:
-                ctrl.obs = pillars  # copied into the graph's inputs, no recapture
-            ctrl.control_step()
-            steps += 1
-            x = ctrl.robot_state
-            ground = ground or x[1] <= 0.0
-            if popin is None or t >= popin:
-                d = min(np.hypot(x[0] - r[0], x[1] - r[1]) - r[2] for r in VTOL_PILLARS)
-                min_pillar = min(min_pillar, d)
-            if int(ctrl.state.goal_idx[0]) >= len(ctrl.waypoints) or x[0] > VTOL_PAST_X:
-                break
-        sync(dev)
-        return x, min_pillar, ground, steps, (time.perf_counter() - t0) / steps * 1e3
 
-    x, clear, ground, steps, replay_ms = fly(VTOL_STEPS)
+def corridor_flight(ctrl, pillars, dev, n_steps, popin=None, path=None):
+    """The corridor from the controller's start: returns (x, min clearance,
+    ground strike, steps, ms a replayed step); each step's (x, z) appended
+    to ``path`` when given."""
+    import numpy as np
+
+    ctrl.obs = np.zeros((0, 7)) if popin else pillars
+    ctrl.set_waypoints(np.asarray(VTOL_WPS))
+    min_pillar, ground, x = np.inf, False, None
+    t0, steps = time.perf_counter(), 0
+    for t in range(n_steps):
+        if popin is not None and t == popin:
+            ctrl.obs = pillars  # copied into the graph's inputs, no recapture
+        ctrl.control_step()
+        steps += 1
+        x = ctrl.robot_state
+        if path is not None:
+            path.append((float(x[0]), float(x[1])))
+        ground = ground or x[1] <= 0.0
+        if popin is None or t >= popin:
+            d = min(np.hypot(x[0] - r[0], x[1] - r[1]) - r[2] for r in VTOL_PILLARS)
+            min_pillar = min(min_pillar, d)
+        if int(ctrl.state.goal_idx[0]) >= len(ctrl.waypoints) or x[0] > VTOL_PAST_X:
+            break
+    sync(dev)
+    return x, min_pillar, ground, steps, (time.perf_counter() - t0) / steps * 1e3
+
+
+def vtol(dev, card):
+    """Phase 28: the VTOL corridor and the pop-in curve of
+    ``tests/test_vtol_e2e.py`` at the RTI budget through the captured
+    controller step, then ``examples.vtol --rti`` over the whole route."""
+    import contextlib
+    import io
+
+    from safe_control_tpu_torch.examples import vtol as vtol_example
+
+    t_phase = time.perf_counter()
+    # examples/test_vtol.py's robot: the same configuration, so that
+    # examples.vtol below replays this graph.  The test's 8 selection slots
+    # become the example's 10; the MPC reads the first 5, the same rows.
+    spec = VTOL_ROBOT
+    ctrl, pillars, first_s, dx_first, eager_ms, capture_s, nodes = vtol_controller(dev, spec)
+
+    def fly(n_steps, popin=None, path=None):
+        return corridor_flight(ctrl, pillars, dev, n_steps, popin, path)
+
+    path = []
+    x, clear, ground, steps, replay_ms = fly(VTOL_STEPS, path=path)
     print(f"phase 28 [{card}] VTOL2D corridor (tests/test_vtol_e2e.py, pillars at x=37, "
           f"MPCConfig.rti N=30, D=120, the general solve) through the captured controller "
           f"step: {steps} steps, final x {x[0]:.2f} m z {x[1]:.2f} m, pillar clearance "
@@ -1959,7 +2015,152 @@ def vtol(dev, card):
         raise SystemExit("phase 28 failed: examples.vtol --rti did not end as the JAX "
                          "package's script does at the RTI budget")
     return dict(replay_ms=replay_ms, eager_ms=eager_ms, capture_s=capture_s, nodes=nodes,
-                clearance=clear, popin=clear_p)
+                clearance=clear, popin=clear_p, path=path)
+
+
+# Operations of one VTOL2D Euler step (mpc_fused_models.h::VTOL2D::step),
+# counted as QUAD3D_STEP_OPS: sine and cosine 2, the body velocities 6, the
+# airspeed 4, atan2 1, two lift / drag / moment evaluations 37 each, two
+# rotations to the inertial frame 9 each, f 4, g 15, the update 60 and the
+# angle wrap 5.
+VTOL_STEP_OPS = 189
+VTOL_B3_BATCH = 64  # corridor starts held to the plain version (phase 28b)
+VTOL_B3_TILES = 64  # the 64 starts repeated: B=4096 for the launch's time
+
+
+def vtol_starts(dev, B, N=30):
+    """VTOL2D problems 12-22 m before the corridor's pillar row, cruising at
+    12-14 m/s near z=10, goal (45, 10), cold starts, from
+    ``np.random.default_rng(3)`` (also the inputs of the VTOL2D tests of
+    ``tests/test_torch_mpc_fused.py``)."""
+    import numpy as np
+
+    from safe_control_tpu_torch.core.types import pad_obstacles
+
+    rng = np.random.default_rng(3)
+    xs = np.concatenate([rng.uniform(15, 25, (B, 1)), rng.uniform(9.5, 10.5, (B, 1)),
+                         rng.uniform(-0.05, 0.05, (B, 1)), rng.uniform(12, 14, (B, 1)),
+                         rng.uniform(-0.2, 0.2, (B, 1)), np.zeros((B, 1))], axis=1)
+    pillars = [[37.0, float(y), 0.5, 0, 0, 0, 0] for y in range(6, 10)]
+    return (torch.as_tensor(xs, dtype=torch.float32, device=dev),
+            torch.tensor([45.0, 10.0, 0, 0, 0, 0], device=dev).repeat(B, 1),
+            pad_obstacles(pillars, 5, device=dev)[None].repeat(B, 1, 1),
+            torch.zeros((B, 4), device=dev), torch.zeros((B, N, 4), device=dev))
+
+
+def vtol_b3(dev, card, wide_ptxas, general_path):
+    """Phase 28b: B3 at VTOL2D N=30 (M=120; the scaled Jc in the global
+    workspace), the RTI controller's solve: against its plain version at B=1
+    and B=64, its times at B=1, 64 and 4096, and phase 28's corridor through
+    it inside the controller's captured graph, its path beside
+    ``general_path`` (phase 28's, through the general solve).
+    ``wide_ptxas``: the wide VTOL2D instantiation's (registers, stack and
+    spills).  Returns the JSON shape."""
+    from safe_control_tpu_torch import entry
+    from safe_control_tpu_torch.core.spec import VTOL_2D, make_spec
+    from safe_control_tpu_torch.dynamics import get_model
+    from safe_control_tpu_torch.solvers import mpc_cbf
+    from safe_control_tpu_torch.solvers import mpc_fused as mf
+
+    t_phase = time.perf_counter()
+    sp = make_spec(VTOL_2D, radius=VTOL_ROBOT["radius"], v_max=VTOL_ROBOT["v_max"])
+    cf = mpc_cbf.MPCConfig.rti(horizon=30, num_obs=5)
+    mdl = get_model(VTOL_2D)
+    n, m = mdl.N_STATES, mdl.N_CONTROLS
+    nc = mpc_cbf._num_constraints(mdl, cf)
+    ws = mf.workspace_floats(VTOL_2D, sp, entry.DT, cf)
+    smem = mf.shared_memory_bytes(VTOL_2D, sp, entry.DT, cf)
+    per_sm = mf.blocks_per_sm(VTOL_2D, sp, entry.DT, cf)
+    big_b = VTOL_B3_BATCH * VTOL_B3_TILES
+    print(f"phase 28b build [{card}] VTOL2D N=30 (M=120, NR=300, NC={nc}), the wide "
+          f"instantiation: {wide_ptxas[0]}, {wide_ptxas[1]}, {smem} bytes dynamic shared, "
+          f"{per_sm} blocks an SM, workspace {ws} floats a problem ({ws * 4 * big_b} bytes "
+          f"at B={big_b})")
+    admitted = mf.fused_available(VTOL_2D, cf)
+    if not admitted or ws != 120 * nc:
+        raise SystemExit(f"phase 28b failed: VTOL2D N=30 admitted {admitted}, workspace "
+                         f"{ws} floats a problem, not its scaled Jc's {120 * nc}")
+
+    # the kernel against its plain version; the activation tests counted
+    nb = VTOL_B3_BATCH
+    args = vtol_starts(dev, nb)
+    one = tuple(t[:1] for t in args)
+    errs, bits, plain_ms = [], [], []
+    act = {b: ActiveRows(lambda t: t.dim() == 2 and t.shape[-1] == nc) for b in (1, nb)}
+    b3_pair("28b", VTOL_2D, sp, one, cf, errs, active=act[1], bits=bits, plain_ms=plain_ms)
+    b3_pair("28b", VTOL_2D, sp, args, cf, errs, active=act[nb], bits=bits, plain_ms=plain_ms)
+    steps = cf.outer_iters * cf.newton_iters
+    if act[1].calls != steps or act[nb].calls != steps:
+        raise SystemExit("phase 28b failed: not one activation test a Newton step")
+
+    # times: B=1, 64, and the 64 starts repeated to B=4096 (the same work a copy)
+    big = tuple(t.repeat(VTOL_B3_TILES, *([1] * (t.dim() - 1))) for t in args)
+    ms, bounds = {}, {}
+    for b_, ins, reps, rows in ((1, one, 20, act[1].total()), (nb, args, 5, act[nb].total()),
+                                (big_b, big, 3, VTOL_B3_TILES * act[nb].total())):
+        run = lambda: mf.solve_fused_batch(VTOL_2D, sp, *ins, entry.DT, cf)
+        run()
+        ms[b_] = sync_time(run, reps)
+        ops = b3_flops(b_, n, m, 30, 5, nc, VTOL_STEP_OPS, rows, 6, mdl.REL_DEG,
+                       outer=cf.outer_iters, newton=cf.newton_iters)
+        bounds[b_] = (ops, *bound(ops, b3_bytes(b_, n, m, 30, 5)))
+    print(f"phase 28b [{card}] VTOL2D N=30 RTI: fused kernel "
+          + ", ".join(f"B={b_} {ms[b_]:.4f} ms ({bounds[b_][0]:.4e} operations, bound "
+                      f"{bounds[b_][1]:.4f} ms by {bounds[b_][2]}, "
+                      f"{100 * bounds[b_][1] / ms[b_]:.2f}% of it)" for b_ in ms)
+          + f"; plain version B=1 {plain_ms[0]:.1f} ms, B={nb} {plain_ms[1]:.1f} ms")
+
+    # phase 28's corridor through B3, in the controller's captured graph
+    log = LogRecords()
+    logger = logging.getLogger("safe_control_tpu_torch.solvers")
+    logger.addHandler(log)
+    seen = len(mpc_cbf._FUSED_FALLBACK_SEEN)
+    mf.LAUNCH_COUNT = 0
+    try:
+        ctrl, pillars, first_s, dx_first, eager_ms, capture_s, nodes = vtol_controller(
+            dev, dict(VTOL_ROBOT, use_fused_kernel=True))
+        so = ctrl.step_object()
+        a_step, warmup = so.launches.get(mf.__name__, 0), so.warmup_launches.get(mf.__name__, 0)
+        path = []
+        x, clear, ground, flown, replay_ms = corridor_flight(ctrl, pillars, dev, VTOL_STEPS,
+                                                             path=path)
+        sync(dev)
+    finally:
+        logger.removeHandler(log)
+    launches = mf.LAUNCH_COUNT
+    fallbacks = len(log.records) + len(mpc_cbf._FUSED_FALLBACK_SEEN) - seen
+    gaps = [max(abs(a[0] - b[0]), abs(a[1] - b[1])) for a, b in zip(path, general_path)]
+    same_until = next((k for k, g in enumerate(gaps) if g > 1e-3), len(gaps))
+    print(f"phase 28b [{card}] the corridor's path through B3 beside phase 28's through the "
+          f"general solve: within 1e-3 m for the first {same_until} of {len(gaps)} common "
+          f"steps, largest gap {max(gaps):.3f} m; x after each 20 steps "
+          + ", ".join(f"{path[k][0]:.2f}/{general_path[k][0]:.2f}"
+                      for k in range(19, len(gaps), 20)) + " m (B3/general)")
+    print(f"phase 28b [{card}] VTOL2D corridor through B3 (use_fused_kernel, the captured "
+          f"controller step): {flown} steps, final x {x[0]:.2f} m z {x[1]:.2f} m, pillar "
+          f"clearance {clear:.3f} m, ground strike {ground}; B3 launches a replay {a_step}, "
+          f"{launches} in all ({warmup} the warm-up's, 1 the first replay's, {flown} the "
+          f"flight's), fallbacks logged {fallbacks}; {replay_ms:.2f} ms a replayed step (host "
+          f"clock, the host read included) against the 50 ms period, an eager step "
+          f"{eager_ms:.1f} ms; capture {capture_s:.2f} s (the first step {first_s:.2f} s), "
+          f"graph nodes {nodes}; the first replay vs the warm-up, max difference "
+          f"{dx_first:.3e}; phase {time.perf_counter() - t_phase:.1f} s")
+    if ground or not x[0] > 25.0 or not clear > 0.3:
+        raise SystemExit("phase 28b failed: the VTOL corridor through B3 struck the ground, "
+                         "stalled or came within 0.3 m of a pillar")
+    if not (a_step == 1 and launches == warmup + 1 + flown and fallbacks == 0):
+        raise SystemExit("phase 28b failed: the corridor's step is not one B3 launch")
+    if not dx_first <= 1e-6:
+        raise SystemExit("phase 28b failed: the captured step's first replay disagrees with "
+                         "an eager step")
+    return {"shape": "VTOL2D N=30 RTI (M=120, Jc in the workspace) B=1", "ms": ms[1],
+            "plain_ms": plain_ms[0], "bound_ms": bounds[1][1], "bound_by": bounds[1][2],
+            "operations": bounds[1][0], f"ms_b{nb}": ms[nb], f"plain_ms_b{nb}": plain_ms[1],
+            f"bound_ms_b{nb}": bounds[nb][1], f"ms_b{big_b}": ms[big_b],
+            f"bound_ms_b{big_b}": bounds[big_b][1], "max_abs_err": max(errs),
+            "bit_identical": all(bits), "launches": launches,
+            "launches_per_step": a_step, "replayed_step_ms": replay_ms,
+            "clearance_m": float(clear)}
 
 
 def run_example(module, argv):
@@ -2608,6 +2809,11 @@ def main() -> None:
           f"{1e3 / cstep_ms_g:.1f} steps/s ({cstep_ms_g:.1f} ms/step) through the general "
           f"solve_qp")
 
+    elapsed("phase 24")
+    # ---- phase 24 (no kernel) runs here, while the fused kernel's build of 26
+    # instantiations finishes in the background ------------------------------------
+    warehouse(dev, card)
+
     elapsed("phase 9")
     # ---- phase 9: the fused MPC kernel's build ----------------------------------
     builds["mpc_fused_kernel"].result()
@@ -2624,9 +2830,12 @@ def main() -> None:
               DOUBLE_INTEGRATOR_2D: (make_spec(DOUBLE_INTEGRATOR_2D), int_cfg)}
     shapes.update({model: (make_spec(model), int_cfg) for model in NEW_B3_OPS})
     shapes.update({model: (make_spec(model), int_cfg) for model in DRIFT_B3_OPS})
-    b3_report = {}
+    b3_report, b3_wide = {}, {}
     with UnitWeights():  # to size Manipulator2D's parameter block
-        for model, regs, frame in fused_ptxas(info["ptxas"]):
+        for model, wide, regs, frame in fused_ptxas(info["ptxas"]):
+            if wide:
+                b3_wide[model] = (regs, frame)
+                continue
             sp, cf = shapes[model]
             smem = mf.shared_memory_bytes(model, sp, entry.DT, cf)
             per_sm = mf.blocks_per_sm(model, sp, entry.DT, cf)
@@ -2637,8 +2846,9 @@ def main() -> None:
           f"built beside the other two and phases 2-8), {threads}-thread blocks; "
           + " | ".join(v for k, v in b3_report.items()
                        if k not in NEW_B3_OPS and k not in DRIFT_B3_OPS))
-    if set(b3_report) != set(mf.MODEL_IDS):
-        raise SystemExit("phase 9 failed: not every model has a fused kernel instantiation")
+    if set(b3_report) != set(mf.MODEL_IDS) or set(b3_wide) != set(mf.MODEL_IDS):
+        raise SystemExit("phase 9 failed: not every model has its two fused kernel "
+                         "instantiations (shared memory, and the wide layout's workspace)")
 
     # ---- phase 10: fused kernel vs its plain version -------------------------------
     fused_errs = []
@@ -2763,9 +2973,9 @@ def main() -> None:
           f"solves/s ({fstep_ms_g:.1f} ms/step) through the general solve")
 
     q3 = get_model(QUAD_3D)
-    q3_n, q3_m, q3_M = q3.N_STATES, q3.N_CONTROLS, 10 * q3.N_CONTROLS
+    q3_n, q3_m = q3.N_STATES, q3.N_CONTROLS
     b3_ops = b3_flops(BATCH, q3_n, q3_m, 10, 5, q3_nc, QUAD3D_STEP_OPS, b3_active.total())
-    b3_bound, b3_by = bound(b3_ops, BATCH * (2 * q3_n + 35 + q3_m + 2 * q3_M + 11 * q3_n + 1) * 4)
+    b3_bound, b3_by = bound(b3_ops, b3_bytes(BATCH, q3_n, q3_m, 10, 5))
     print(f"phase 12 [{card}] B={BATCH} Quad3D N=10: fused kernel {b3_ops:.4e} operations "
           f"({b3_active.total()} active constraint rows in the Newton steps), bound "
           f"{b3_bound:.4f} ms by {b3_by}, {100 * b3_bound / f_ms:.2f}% of it reached")
@@ -2818,9 +3028,8 @@ def main() -> None:
     mpcc_alone(dev, card)
     drift_scenario(dev, card)
 
-    elapsed("phase 24")
-    # ---- phases 24-27: the warehouse, the fleets, the multi-device path ----------
-    warehouse(dev, card)
+    elapsed("phase 25")
+    # ---- phases 25-27: the fleets, the multi-device path (phase 24 ran before 9) --
     het = heterogeneous_fleet(dev, card)
     shielded_fleet(dev, card)
     multi_device(dev, card)
@@ -2829,6 +3038,8 @@ def main() -> None:
     # ---- phases 28-31: the examples' scenarios and command lines --------------------
     new_errs = {"qp": [], "fused": []}
     vt = vtol(dev, card)
+    elapsed("phase 28b")
+    vt_b3 = vtol_b3(dev, card, b3_wide[VTOL_2D], vt["path"])
     ue_b2, ue_b3 = unknown_env(dev, card, new_errs["fused"])
     va_b2 = visibility_attitude(dev, card, new_errs["qp"])
     cl_b2, cl_b3 = command_lines(dev, card)
@@ -2890,11 +3101,14 @@ def main() -> None:
         "tracking_launches_per_step": du_fleet[0] / FLEET_DU_STEPS,
         "tracking_ms_per_launch": du_fleet[2],
         "dpcbf_launches_per_step": b3_new_launches / STEPS,
+        "vtol_n30_launches": vt_b3["launches"],
+        "vtol_n30_launches_per_step": vt_b3["launches_per_step"],
         "scenario_launches": {"unknown_env": ue_b3, "command_lines": cl_b3},
         "scenario_max_abs_err": max(new_errs["fused"]),
-        "shapes": b3_shapes + drift_shapes,
+        "shapes": b3_shapes + drift_shapes + [vt_b3],
         "drift_bit_identical": drift_bits,
-        "max_abs_err": max(fused_max_err, b3_new_err, drift_err, *new_errs["fused"]),
+        "max_abs_err": max(fused_max_err, b3_new_err, drift_err, vt_b3["max_abs_err"],
+                           *new_errs["fused"]),
         "ms": f_ms,
         "plain_ms": f_plain_ms,
         "bound_ms": b3_bound,

@@ -22,8 +22,14 @@ package's bits, and holds the package's build to its plain PyTorch version
 on the first 64 problems of each (max |du| and |dxs| < 5e-3, viol atol
 1e-3; bits reported).  Then it times both launches with CUDA events, in
 turns (other, this, this, other), at Quad3D N=10 B = 1, 396, 4096 and 16384 and VTOL2D N=16 B=256, beside the
-card's name and power limit.  Exits non-zero when a check fails or there is
-no card.
+card's name and power limit.  A build with a global workspace
+(``mpc_fused_workspace_floats``: decision widths past a block's shared
+memory) is launched with one; where both builds have it, they are also held
+to each other and timed on the RTI budget at B=64 at VTOL2D N=30 (M=120,
+Jc in the workspace), Quad3D N=30 and DynamicUnicycle2D N=64 (M=120 and
+128, Jr and Jc there), and where only this one has it, this one is held
+to its plain version and timed there alone.  Exits non-zero when a check
+fails or there is no card.
 """
 
 from __future__ import annotations
@@ -130,11 +136,15 @@ def main() -> None:
     jobs = {"this": csrc / "mpc_fused_kernel.cu", "other": other_src}
     built = build_all(jobs)
     for lib, _ in built.values():
+        lib.wide = hasattr(lib, "mpc_fused_workspace_floats")  # the launch takes a workspace
         lib.mpc_fused_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_int] + [ctypes.c_void_p] * (10 if lib.wide else 9) + [ctypes.c_int] * 7
+            + [ctypes.c_void_p])
         lib.mpc_fused_launch.restype = ctypes.c_int
-        lib.mpc_fused_shared_bytes.argtypes = [ctypes.c_int] * 5
-        lib.mpc_fused_shared_bytes.restype = ctypes.c_int
+        for fn in [lib.mpc_fused_shared_bytes] + ([lib.mpc_fused_workspace_floats]
+                                                  if lib.wide else []):
+            fn.argtypes = [ctypes.c_int] * 5
+            fn.restype = ctypes.c_int
 
     specs = {QUAD_3D: make_spec(QUAD_3D), VTOL_2D: make_spec(VTOL_2D),
              DYNAMIC_UNICYCLE_2D: make_spec(DYNAMIC_UNICYCLE_2D, a_max=1.0, w_max=0.5),
@@ -153,7 +163,8 @@ def main() -> None:
         return 32 * ((M + 31) // 32)  # the first port's launch: 32 * ceil(M / 32)
 
     for name, (lib, report) in built.items():
-        regs = "; ".join(f"{mdl}: {r}, {frame}" for mdl, r, frame in fused_ptxas(report))
+        regs = "; ".join(f"{mdl}{' (wide)' if wide else ''}: {r}, {frame}"
+                         for mdl, wide, r, frame in fused_ptxas(report))
         occ = []
         for model in (QUAD_3D, VTOL_2D):
             shape = mf._shape_args(model, specs[model], entry.DT, cfgs[model])
@@ -197,10 +208,10 @@ def main() -> None:
         problems[(model, ib)] = (i_xs, i_goal, two_obs, torch.zeros((ib, 2), device=dev),
                                  torch.zeros((ib, 10, 2), device=dev))
 
-    def launcher(lib, model, args):
+    def launcher(lib, model, args, cf=None):
         """A launch of ``lib`` as ``solve_fused_batch`` makes it; ``run()``
         launches, ``run.outs`` holds (U, xs, viol)."""
-        sp, cf = specs[model], cfgs[model]
+        sp, cf = specs[model], cf or cfgs[model]
         pb = mf._problem(model, sp, cf)
         B, M = args[0].shape[0], pb.N * pb.m
         ins = [t.contiguous() for t in args[:4]]
@@ -209,16 +220,19 @@ def main() -> None:
                               device=dev)
         outs = [torch.empty((B, M), device=dev), torch.empty((B, (pb.N + 1) * pb.n), device=dev),
                 torch.empty((B,), device=dev)]
-        call = (mf.MODEL_IDS[model], *(t.data_ptr() for t in ins), U0.data_ptr(),
-                params.data_ptr(), *(t.data_ptr() for t in outs), B, pb.N, pb.K,
-                len(pb.bounded), params.numel(), cf.outer_iters, cf.newton_iters,
+        shape = (mf.MODEL_IDS[model], pb.N, pb.K, len(pb.bounded), params.numel())
+        ws_floats = lib.mpc_fused_workspace_floats(*shape) if lib.wide else 0
+        ws = torch.empty((B * ws_floats,), device=dev)
+        call = (shape[0], *(t.data_ptr() for t in ins), U0.data_ptr(), params.data_ptr(),
+                *(t.data_ptr() for t in outs), *([ws.data_ptr() or None] if lib.wide else []),
+                B, *shape[1:], cf.outer_iters, cf.newton_iters,
                 torch.cuda.current_stream().cuda_stream)
 
         def run():
             err = lib.mpc_fused_launch(*call)
             if err != 0:
                 raise SystemExit(f"launch failed: CUDA error {err}")
-        run.tensors = ins + [U0, params]  # alive as long as the launches that read them
+        run.tensors = ins + [U0, params, ws]  # alive as long as the launches that read them
         run.outs = outs
         return run
 
@@ -255,6 +269,41 @@ def main() -> None:
             run()
         ms = [(name, sync_time(runs[name], reps)) for name in ("other", "this", "this", "other")]
         print(f"[{card}] {model} N={cfgs[model].horizon} B={B}: "
+              + ", ".join(f"{name} {t:.4f} ms" for name, t in ms))
+
+    # ---- the wide layouts, the RTI budget, B=64: VTOL2D N=30 (Jc in the workspace),
+    # Quad3D N=30 and DynamicUnicycle2D N=64 (M=128; Jr and Jc both there) -----------
+    from chip_smoke import vtol_starts
+
+    wide = [name for name, (lib, _) in built.items() if lib.wide]
+    for model, N in ((VTOL_2D, 30), (QUAD_3D, 30), (DYNAMIC_UNICYCLE_2D, 64)):
+        wide_cfg = mpc_cbf.MPCConfig.rti(horizon=N, num_obs=5)
+        args = (vtol_starts(dev, 64) if model == VTOL_2D else
+                entry.build_fused_step(64, model_name=model, horizon=N, device=dev)[1])
+        runs = {name: launcher(built[name][0], model, args, wide_cfg) for name in wide}
+        for run in runs.values():
+            run()
+        plain = mf.solve_fused_batch_reference(model, specs[model], *args, entry.DT, wide_cfg)
+        torch.cuda.synchronize()
+        this = runs["this"].outs
+        same = (all(torch.equal(a, b) for a, b in zip(this, runs["other"].outs))
+                if "other" in runs else "n/a (the other build has no workspace)")
+        du = (this[0] - plain.U.reshape(64, -1)).abs().max().item()
+        dxs = (this[1] - plain.xs.reshape(64, -1)).abs().max().item()
+        dv = (this[2] - plain.viol).abs().max().item()
+        plain_same = torch.equal(this[0], plain.U.reshape(64, -1)) and torch.equal(
+            this[1], plain.xs.reshape(64, -1)) and torch.equal(this[2], plain.viol)
+        ws = built["this"][0].mpc_fused_workspace_floats(
+            *mf._shape_args(model, specs[model], entry.DT, wide_cfg))
+        print(f"{model} N={N} RTI B=64 (M={N * mf._problem(model, specs[model], wide_cfg).m}, "
+              f"workspace {ws} "
+              f"floats a problem; built with it: {', '.join(wide)}): this vs other "
+              f"bit-identical {same}; this vs plain max|du| {du:.3e}, max|dxs| {dxs:.3e}, "
+              f"max|dviol| {dv:.3e}, bit-identical {plain_same}")
+        failed |= not (du < U_TOL and dxs < U_TOL and dv <= VIOL_TOL)
+        order = ("other", "this", "this", "other") if "other" in runs else ("this", "this")
+        ms = [(name, sync_time(runs[name], 5)) for name in order]
+        print(f"[{card}] {model} N={N} RTI B=64: "
               + ", ".join(f"{name} {t:.4f} ms" for name, t in ms))
     if failed:
         raise SystemExit("fused_kernel_ab: this kernel disagrees with its plain version")

@@ -138,10 +138,11 @@ def load_mpc_fused_kernel() -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(build("mpc_fused_kernel")))
         lib.mpc_fused_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         )
         lib.mpc_fused_launch.restype = ctypes.c_int
-        for fn in (lib.mpc_fused_shared_bytes, lib.mpc_fused_blocks_per_sm):
+        for fn in (lib.mpc_fused_shared_bytes, lib.mpc_fused_blocks_per_sm,
+                   lib.mpc_fused_workspace_floats):
             fn.argtypes = [ctypes.c_int] * 5
             fn.restype = ctypes.c_int
         lib.mpc_fused_threads.restype = ctypes.c_int

@@ -44,6 +44,19 @@
 // of shared memory at Quad3D N=10 (M=40) and 111,072 at VTOL2D N=16
 // (M=64), room for five and two 128-thread blocks an SM.
 //
+// Wide problems: one thread a decision variable makes the 128 threads of a
+// block the width limit, M <= 128.  Where the whole layout would take more
+// than a block's 227 KB of shared memory, the scaled Jc moves to this
+// problem's slice of a global workspace, and where the rest is still too
+// large, Jr with the arrays that reuse its space (L, the candidates and
+// their rows) goes there too (Layout; VTOL2D N=30, M=120: Jc alone, 217,328
+// bytes of shared memory; Quad3D N=30: both).  The choice follows from the
+// sizes alone, so the host and the CPU emulation take the branch the card
+// takes; a layout that fits keeps today's offsets and its own
+// instantiation (WIDE = false), whose pointers all point into shared memory.
+// VTOL2D N=30 at the RTI budget (2 x 2): 2.95 ms a launch at B=1, 99.7 ms
+// at B=4096 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 28b).
+//
 // Layout: row-major (B, ...) inputs, one problem per block; no transpose.
 
 #include <cuda_runtime.h>
@@ -62,14 +75,19 @@ constexpr int COMMON = 9;  // rho0, growth, rho_max, reg, gain a, gain b, radius
 constexpr int OBSTACLE_FLOATS = 12;  // an Obstacle in shared memory
 constexpr float NOISE_EPS = (float)(4.0 * 1.1920928955078125e-07);  // 4 eps_f32
 
-// Threads a block (at least M = 64, the widest decision vector admitted),
-// and the blocks an SM that the register allocation must leave room for:
-// five, as many as Quad3D N=10's shared memory allows, hold a thread to 96
-// registers (Quad3D fits without spills, VTOL2D spills about 100 bytes).
-// Of 4 or 5 blocks and 64, 96 or 128 threads, the fastest at B=4096.
+// Threads a block, and so the widest decision vector (one thread a
+// variable: M <= 128), and the blocks an SM that the register allocation
+// must leave room for: five, as many as Quad3D N=10's shared memory allows,
+// hold a thread to 96 registers (Quad3D fits without spills, VTOL2D spills
+// about 100 bytes).  Of 4 or 5 blocks and 64, 96 or 128 threads, the
+// fastest at B=4096.  A wide layout leaves room for one block an SM (Jc in
+// the workspace) to three (Jr too) at M=120: three, up to 168 registers.
 constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 5;
+constexpr int MIN_BLOCKS_WIDE = 3;
 static_assert(THREADS % 32 == 0 && THREADS >= 64, "a block is whole warps, one thread a variable");
+// The most dynamic shared memory a block may have (sm_90: 227 KB).
+constexpr int MAX_SHARED_BYTES = 232448;
 
 __device__ __forceinline__ float alpha_at(int i) {
   switch (i) {
@@ -82,25 +100,48 @@ __device__ __forceinline__ float alpha_at(int i) {
   }
 }
 
-// Sizes of one configuration and where each array lives in shared memory.
+// Sizes of one configuration and where each array lives: in shared memory
+// (offsets from the block's dynamic shared memory) or, for Jc and the Jr
+// region of a wide layout, in the problem's slice of the workspace (offsets
+// from the slice; ``ws`` floats a problem).
 struct Layout {
   int n, m, N, K, NB, M, NR, NC, nP;
+  bool jc_global, jr_global;
   int P, x0, goal, uprev, obs, Jr, Jc, L, cand, ra, ca, H, r0, c0, act0, lam, cs, U, stp, grad,
-      gf, fr, tmp, w, Hs, dv, sc, hp, act, total;
+      gf, fr, tmp, w, Hs, dv, sc, hp, act, total, ws;
   __host__ __device__ Layout(int n_, int m_, int N_, int K_, int NB_, int nP_)
       : n(n_), m(m_), N(N_), K(K_), NB(NB_), M(N_ * m_), NR(N_ * (n_ + m_)),
         NC(N_ * K_ + 2 * N_ * NB_), nP(nP_) {
-    total = 0;
+    place(false, false);
+    if (total > MAX_SHARED_BYTES / static_cast<int>(sizeof(float))) place(true, false);
+    if (total > MAX_SHARED_BYTES / static_cast<int>(sizeof(float))) place(true, true);
+  }
+  __host__ __device__ void place(bool jc_in_ws, bool jr_in_ws) {
+    jc_global = jc_in_ws;
+    jr_global = jr_in_ws;
+    total = ws = 0;
     P = take(nP); x0 = take(n); goal = take(n); uprev = take(m);
     obs = take(K * OBSTACLE_FLOATS);
     // Jr and Jc live from the rollouts until grad and H are formed; L and
-    // the line search's candidates and rows then take their place.
-    Jr = L = total;
-    Jc = Jr + NR * M;
+    // the line search's candidates and rows then take Jr's place.
+    const int reuse = M * M + NUM_ALPHAS * (M + NR + NC);
+    if (!jc_in_ws) {
+      Jr = L = total;
+      Jc = Jr + NR * M;
+      take(max_of(M * (NR + NC), reuse));
+    } else if (!jr_in_ws) {
+      Jr = L = total;
+      take(max_of(M * NR, reuse));
+      Jc = 0;
+      ws = M * NC;
+    } else {
+      Jr = L = 0;
+      Jc = NR * M;
+      ws = max_of(M * (NR + NC), reuse);
+    }
     cand = L + M * M;
     ra = cand + NUM_ALPHAS * M;
     ca = ra + NUM_ALPHAS * NR;
-    take(max_of(M * (NR + NC), M * M + NUM_ALPHAS * (M + NR + NC)));
     H = take(M * M);
     r0 = take(NR); c0 = take(NC); act0 = take(NC); lam = take(NC); cs = take(NC);
     U = take(M); stp = take(M); grad = take(M); gf = take(M); fr = take(M); tmp = take(M);
@@ -192,6 +233,26 @@ __device__ void eval_rows(const Layout& lo, const float* sh, const Obstacle* obs
   }
 }
 
+// Jr, the scaled Jc, and the arrays that take Jr's place once H is formed
+// (L, the line search's candidates and their rows), where the layout put
+// them.  Without WIDE every one is in shared memory, at today's offsets.
+struct Arrays {
+  float* Jr;
+  float* Jc;
+  float* L;
+  float* cand;
+  float* ra;
+  float* ca;
+};
+
+template <bool WIDE>
+__device__ __forceinline__ Arrays arrays_of(const Layout& lo, float* sh, float* ws) {
+  float* slice = WIDE ? ws + static_cast<size_t>(blockIdx.x) * static_cast<size_t>(lo.ws) : sh;
+  float* jr = WIDE && lo.jr_global ? slice : sh;
+  float* jc = WIDE && lo.jc_global ? slice : sh;
+  return Arrays{jr + lo.Jr, jc + lo.Jc, jr + lo.L, jr + lo.cand, jr + lo.ra, jr + lo.ca};
+}
+
 // Column d of Jr and of the scaled Jc; thread 0 also writes the values.
 struct JacobianSink {
   float* Jr;
@@ -226,16 +287,17 @@ struct ValueSink {
 };
 
 template <class Model>
-__device__ void newton_step(const Layout& lo, float* sh, const Obstacle* obs, float rho) {
+__device__ void newton_step(const Layout& lo, float* sh, const Arrays& ar, const Obstacle* obs,
+                            float rho) {
   const int M = lo.M, NR = lo.NR, NC = lo.NC;
   const int tid = threadIdx.x;
   const float* P = sh + lo.P;
   const float* lbu = P + COMMON + Model::n + Model::m;
   const float* ubu = lbu + Model::m;
-  float* Jr = sh + lo.Jr;
-  float* Jc = sh + lo.Jc;
+  float* Jr = ar.Jr;
+  float* Jc = ar.Jc;
   float* H = sh + lo.H;
-  float* L = sh + lo.L;
+  float* L = ar.L;
   float* U = sh + lo.U;
   float* stp = sh + lo.stp;
   float* sc = sh + lo.sc;
@@ -390,19 +452,19 @@ __device__ void newton_step(const Layout& lo, float* sh, const Obstacle* obs, fl
   }
   if (tid < NUM_ALPHAS) {
     const float al = alpha_at(tid);
-    float* cand = sh + lo.cand + tid * M;
+    float* cand = ar.cand + tid * M;
     for (int i = 0; i < M; ++i) {
       const int j = i % Model::m;
       cand[i] = clamp_nan(U[i] + al * stp[i], lbu[j], ubu[j]);
     }
-    ValueSink vs{sh + lo.ra + tid * NR, sh + lo.ca + tid * NC, nullptr, Model::n};
+    ValueSink vs{ar.ra + tid * NR, ar.ca + tid * NC, nullptr, Model::n};
     DecisionView<float> view{cand};
     eval_rows<Model, float>(lo, sh, obs, view, sh + lo.hp + tid * lo.K * 2, vs);
   }
   __syncthreads();
   if (tid < NUM_ALPHAS) {
-    const float* ra = sh + lo.ra + tid * NR;
-    const float* ca = sh + lo.ca + tid * NC;
+    const float* ra = ar.ra + tid * NR;
+    const float* ca = ar.ca + tid * NC;
     float dc = 0.0f, dp = 0.0f;
     for (int i = 0; i < NR; ++i) {
       const float r0 = sh[lo.r0 + i];
@@ -446,17 +508,20 @@ __device__ void newton_step(const Layout& lo, float* sh, const Obstacle* obs, fl
   __syncthreads();
 }
 
-template <class Model>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+// ``ws``: the workspace of a WIDE layout, ``lo.ws`` floats a problem (read
+// and written by this block only); unused otherwise.
+template <class Model, bool WIDE>
+__global__ void __launch_bounds__(THREADS, WIDE ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
     mpc_fused_kernel(const float* __restrict__ x0, const float* __restrict__ goal,
                      const float* __restrict__ obs, const float* __restrict__ uprev,
                      const float* __restrict__ U0, const float* __restrict__ params,
                      float* __restrict__ U_out, float* __restrict__ xs_out,
-                     float* __restrict__ viol_out, int N, int K, int NB, int nP, int outer,
-                     int newton) {
+                     float* __restrict__ viol_out, float* ws, int N, int K, int NB, int nP,
+                     int outer, int newton) {
   extern __shared__ float sh[];
   constexpr int n = Model::n, m = Model::m;
   const Layout lo(n, m, N, K, NB, nP);
+  const Arrays ar = arrays_of<WIDE>(lo, sh, ws);
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int M = lo.M, NC = lo.NC;
@@ -506,13 +571,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 
   // Constraint row scales 1 / max(|Jc row|, 1e-2) at the warm start.
   if (tid < M) {
-    JacobianSink js{sh + lo.Jr, sh + lo.Jc, sh + lo.r0, sh + lo.c0, sh + lo.cs, M, tid};
+    JacobianSink js{ar.Jr, ar.Jc, sh + lo.r0, sh + lo.c0, sh + lo.cs, M, tid};
     DecisionView<Dual> view{U, tid};
     eval_rows<Model, Dual>(lo, sh, ob, view, reinterpret_cast<Dual*>(sh + lo.hp) + tid * K, js);
   }
   __syncthreads();
   for (int i = tid; i < NC; i += blockDim.x) {
-    const float* row = sh + lo.Jc + i * M;
+    const float* row = ar.Jc + i * M;
     float s = 0.0f;
     for (int d = 0; d < M; ++d) s = s + row[d] * row[d];
     sh[lo.cs + i] = 1.0f / clamp_min_nan(sqrtf(s), 1e-2f);
@@ -523,16 +588,16 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 #pragma unroll 1
   for (int it = 0; it < outer; ++it) {
 #pragma unroll 1
-    for (int k = 0; k < newton; ++k) newton_step<Model>(lo, sh, ob, rho);
+    for (int k = 0; k < newton; ++k) newton_step<Model>(lo, sh, ar, ob, rho);
     // Multiplier update from the scaled constraints at U (thread 0 rolls out).
     if (tid == 0) {
-      ValueSink vs{nullptr, sh + lo.ca, nullptr, n};
+      ValueSink vs{nullptr, ar.ca, nullptr, n};
       DecisionView<float> view{U};
       eval_rows<Model, float>(lo, sh, ob, view, sh + lo.hp, vs);
     }
     __syncthreads();
     for (int i = tid; i < NC; i += blockDim.x) {
-      sh[lo.lam + i] = clamp_min_nan(sh[lo.lam + i] - rho * (sh[lo.ca + i] * sh[lo.cs + i]), 0.0f);
+      sh[lo.lam + i] = clamp_min_nan(sh[lo.lam + i] - rho * (ar.ca[i] * sh[lo.cs + i]), 0.0f);
     }
     rho = fminf(rho * P[1], P[2]);
     __syncthreads();
@@ -541,33 +606,61 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
   // Outputs: U, the rollout and the largest scaled violation.
   for (int i = tid; i < M; i += blockDim.x) U_out[static_cast<size_t>(b) * M + i] = U[i];
   if (tid == 0) {
-    ValueSink vs{nullptr, sh + lo.ca, xs_out + static_cast<size_t>(b) * (N + 1) * n, n};
+    ValueSink vs{nullptr, ar.ca, xs_out + static_cast<size_t>(b) * (N + 1) * n, n};
     DecisionView<float> view{U};
     eval_rows<Model, float>(lo, sh, ob, view, sh + lo.hp, vs);
     float mn = INFINITY;  // a NaN row makes the minimum NaN, as torch.min does
     for (int i = 0; i < NC; ++i) {
-      const float c = sh[lo.ca + i] * sh[lo.cs + i];
+      const float c = ar.ca[i] * sh[lo.cs + i];
       mn = (c != c || mn != mn) ? c + mn : fminf(mn, c);
     }
     viol_out[b] = clamp_min_nan(-mn, 0.0f);
   }
 }
 
-// The block's dynamic shared memory in bytes, after the kernel is allowed
-// that much and the largest shared-memory carveout; a CUDA error code (> 0)
-// if either is refused.
-template <class Model>
-int configure(int N, int K, int NB, int nP, size_t* bytes) {
-  *bytes = static_cast<size_t>(Layout(Model::n, Model::m, N, K, NB, nP).total) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(mpc_fused_kernel<Model>,
+// Allows the instantiation the block's dynamic shared memory in bytes and
+// the largest shared-memory carveout; a CUDA error code (> 0) if either is
+// refused.
+template <class Model, bool WIDE>
+int configure(size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(mpc_fused_kernel<Model, WIDE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(*bytes));
+                                         static_cast<int>(bytes));
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(mpc_fused_kernel<Model>,
+    err = cudaFuncSetAttribute(mpc_fused_kernel<Model, WIDE>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   }
   return static_cast<int>(err);
+}
+
+// Blocks of the instantiation that fit on one SM at once, or minus a CUDA
+// error code.
+template <class Model, bool WIDE>
+int occupancy(size_t bytes) {
+  int err = configure<Model, WIDE>(bytes);
+  int blocks = 0;
+  if (err == 0) {
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, mpc_fused_kernel<Model, WIDE>, THREADS, bytes));
+  }
+  return err == 0 ? blocks : -err;
+}
+
+template <class Model, bool WIDE>
+int launch(const Layout& lo, const void* x0, const void* goal, const void* obs,
+           const void* uprev, const void* U0, const void* params, void* U_out, void* xs_out,
+           void* viol, void* ws, int B, int outer, int newton, cudaStream_t stream) {
+  const size_t bytes = static_cast<size_t>(lo.total) * sizeof(float);
+  const int err = configure<Model, WIDE>(bytes);
+  if (err != 0) return err;
+  mpc_fused_kernel<Model, WIDE><<<B, THREADS, bytes, stream>>>(
+      static_cast<const float*>(x0), static_cast<const float*>(goal),
+      static_cast<const float*>(obs), static_cast<const float*>(uprev),
+      static_cast<const float*>(U0), static_cast<const float*>(params),
+      static_cast<float*>(U_out), static_cast<float*>(xs_out), static_cast<float*>(viol),
+      static_cast<float*>(ws), lo.N, lo.K, lo.NB, lo.nP, outer, newton);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ``f(Model{})`` for the model of id ``model``
@@ -607,6 +700,15 @@ extern "C" int mpc_fused_shared_bytes(int model, int N, int K, int NB, int nP) {
   });
 }
 
+// Floats of the global workspace a problem (0 when the layout fits in
+// shared memory): the caller allocates B times as many for a launch.
+extern "C" int mpc_fused_workspace_floats(int model, int N, int K, int NB, int nP) {
+  return with_model(model, [&](auto mdl) {
+    using Model = decltype(mdl);
+    return Layout(Model::n, Model::m, N, K, NB, nP).ws;
+  });
+}
+
 // Threads a block, for the build report.
 extern "C" int mpc_fused_threads() { return THREADS; }
 
@@ -616,38 +718,35 @@ extern "C" int mpc_fused_threads() { return THREADS; }
 extern "C" int mpc_fused_blocks_per_sm(int model, int N, int K, int NB, int nP) {
   return with_model(model, [&](auto mdl) {
     using Model = decltype(mdl);
-    size_t bytes;
-    int err = configure<Model>(N, K, NB, nP, &bytes);
-    int blocks = 0;
-    if (err == 0) {
-      err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, mpc_fused_kernel<Model>, THREADS, bytes));
-    }
-    return err == 0 ? blocks : -err;
+    const Layout lo(Model::n, Model::m, N, K, NB, nP);
+    const size_t bytes = static_cast<size_t>(lo.total) * sizeof(float);
+    return lo.ws > 0 ? occupancy<Model, true>(bytes) : occupancy<Model, false>(bytes);
   });
 }
 
 // model: 0 SingleIntegrator2D, 1 DoubleIntegrator2D, 2 DynamicUnicycle2D,
 // 3 Quad3D, 4 VTOL2D, 5 Unicycle2D, 6 KinematicBicycle2D, 7 its C3BF and
 // 8 its DPCBF variant, 9 Quad2D, 10 Manipulator2D, 11 DynamicBicycle2D,
-// 12 DriftingCar (solvers/mpc_fused.py::MODEL_IDS).  Returns a CUDA
-// error code; -1 for an unknown model.
+// 12 DriftingCar (solvers/mpc_fused.py::MODEL_IDS).  ``workspace``: B times
+// ``mpc_fused_workspace_floats`` floats, or null when that is 0.  Returns a
+// CUDA error code: cudaErrorInvalidValue for a decision vector wider than
+// a block or a missing workspace; -1 for an unknown model.
 extern "C" int mpc_fused_launch(int model, const void* x0, const void* goal, const void* obs,
                                 const void* uprev, const void* U0, const void* params,
-                                void* U_out, void* xs_out, void* viol, int B, int N, int K,
-                                int NB, int nP, int outer, int newton, void* stream) {
+                                void* U_out, void* xs_out, void* viol, void* workspace, int B,
+                                int N, int K, int NB, int nP, int outer, int newton,
+                                void* stream) {
   if (B <= 0) return 0;
   return with_model(model, [&](auto mdl) {
     using Model = decltype(mdl);
-    size_t bytes;
-    const int err = configure<Model>(N, K, NB, nP, &bytes);
-    if (err != 0) return err;
-    mpc_fused_kernel<Model><<<B, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x0), static_cast<const float*>(goal),
-        static_cast<const float*>(obs), static_cast<const float*>(uprev),
-        static_cast<const float*>(U0), static_cast<const float*>(params),
-        static_cast<float*>(U_out), static_cast<float*>(xs_out), static_cast<float*>(viol), N,
-        K, NB, nP, outer, newton);
-    return static_cast<int>(cudaGetLastError());
+    const Layout lo(Model::n, Model::m, N, K, NB, nP);
+    if (lo.M > THREADS || (lo.ws > 0 && workspace == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return lo.ws > 0 ? launch<Model, true>(lo, x0, goal, obs, uprev, U0, params, U_out, xs_out,
+                                           viol, workspace, B, outer, newton, st)
+                     : launch<Model, false>(lo, x0, goal, obs, uprev, U0, params, U_out, xs_out,
+                                            viol, workspace, B, outer, newton, st);
   });
 }

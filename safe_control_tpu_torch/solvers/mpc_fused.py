@@ -4,9 +4,11 @@ Port of ``safe_control_tpu/solvers/mpc_fused.py``.  The whole
 augmented-Lagrangian Gauss-Newton solve of ``mpc_cbf.solve`` — rollout,
 forward-mode Jacobians, H = 2 Jr'Jr + rho Jca'Jca, the masked Cholesky, the
 six-step noise-aware line search and the multiplier update — runs for any
-registered model whose decision vector has M = N m <= 64 entries, in one
+registered model whose decision vector has M = N m <= 128 entries, in one
 kernel launch for the batch (``csrc/mpc_fused_kernel.cu``).  Infinite state
-bounds are clamped to +-1e6, as the JAX kernel does.
+bounds are clamped to +-1e6, as the JAX kernel does.  Where a problem's
+Jacobians outgrow a block's shared memory (VTOL2D N=30, M=120), the kernel
+keeps them in a global workspace that the wrapper allocates.
 
 The CUDA kernel takes the Jacobian columns by forward-mode dual numbers, one
 thread per decision variable: thread d rolls the model out on (value,
@@ -56,7 +58,10 @@ MODEL_IDS = {
 }
 _BICYCLES = (spec_mod.KINEMATIC_BICYCLE_2D, spec_mod.KINEMATIC_BICYCLE_2D_C3BF,
              spec_mod.KINEMATIC_BICYCLE_2D_DPCBF)
-MAX_DECISION = 64  # N * m, as the JAX package's fused_available
+# N * m.  The JAX package admits 64: its cap is the Mosaic compile's, which
+# grows past the TPU compile helper's limits at M=120.  The CUDA kernel's
+# limit is one thread a decision variable of its 128-thread block.
+MAX_DECISION = 128
 BOUND_CLAMP = 1e6  # infinite single-sided state bounds become +-1e6
 ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.0)
 
@@ -81,8 +86,9 @@ class FusedResult(NamedTuple):
 
 
 def fused_available(model_name: str, cfg: mpc_mod.MPCConfig) -> bool:
-    """The JAX package's rule — M = N m <= 64, no optimal decay, no polish,
-    no ``newton_f64`` — for a model that has a CUDA instantiation."""
+    """The JAX package's rule — no optimal decay, no polish, no
+    ``newton_f64`` — for a model that has a CUDA instantiation, with the
+    width cap at M = N m <= ``MAX_DECISION`` (128) where JAX's is 64."""
     if model_name not in MODEL_IDS:
         return False
     if cfg.horizon * get_model(model_name).N_CONTROLS > MAX_DECISION:
@@ -148,7 +154,9 @@ def solve_fused_batch(model_name, spec, xs, goals, obs, u_prevs, U_warm, dt,
     and ``U_warm`` (B, N, m), the PREVIOUS solution, which is shifted by one
     stage here as ``mpc_cbf.solve`` does.  ``spec`` holds plain floats.
     CPU tensors go to ``solve_fused_batch_reference``; CUDA tensors must be
-    float32 and launch the kernel on the current stream.
+    float32 and launch the kernel on the current stream, with the workspace
+    of a wide layout allocated on it (inside a CUDA-graph capture, from the
+    graph's pool).
     """
     global LAUNCH_COUNT, DISPATCH_COUNT
     DISPATCH_COUNT += 1
@@ -174,13 +182,17 @@ def solve_fused_batch(model_name, spec, xs, goals, obs, u_prevs, U_warm, dt,
     U_out = torch.empty((B, M), dtype=torch.float32, device=xs.device)
     xs_out = torch.empty((B, (pb.N + 1) * pb.n), dtype=torch.float32, device=xs.device)
     viol = torch.empty((B,), dtype=torch.float32, device=xs.device)
+    shape = (MODEL_IDS[model_name], pb.N, pb.K, len(pb.bounded), params.numel())
+    ws_floats = lib.mpc_fused_workspace_floats(*shape)
+    workspace = (torch.empty((B * ws_floats,), dtype=torch.float32, device=xs.device)
+                 if ws_floats else None)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = lib.mpc_fused_launch(
-            MODEL_IDS[model_name], *(t.data_ptr() for t in ins), U0.data_ptr(),
-            params.data_ptr(), U_out.data_ptr(), xs_out.data_ptr(), viol.data_ptr(),
-            B, pb.N, pb.K, len(pb.bounded), params.numel(), cfg.outer_iters, cfg.newton_iters,
-            stream,
+            shape[0], *(t.data_ptr() for t in ins), U0.data_ptr(), params.data_ptr(),
+            U_out.data_ptr(), xs_out.data_ptr(), viol.data_ptr(),
+            None if workspace is None else workspace.data_ptr(), B, *shape[1:],
+            cfg.outer_iters, cfg.newton_iters, stream,
         )
     if err != 0:
         raise RuntimeError(f"mpc_fused_kernel launch failed: CUDA error {err}")
@@ -208,6 +220,15 @@ def shared_memory_bytes(model_name, spec, dt, cfg) -> int:
     from safe_control_tpu_torch import _build
 
     return _build.load_mpc_fused_kernel().mpc_fused_shared_bytes(
+        *_shape_args(model_name, spec, dt, cfg))
+
+
+def workspace_floats(model_name, spec, dt, cfg) -> int:
+    """Floats of the CUDA kernel's global workspace a problem: 0 when the
+    layout fits in shared memory (asks the built library)."""
+    from safe_control_tpu_torch import _build
+
+    return _build.load_mpc_fused_kernel().mpc_fused_workspace_floats(
         *_shape_args(model_name, spec, dt, cfg))
 
 

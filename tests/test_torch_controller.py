@@ -23,6 +23,10 @@ package's, driven the same way:
   CPU the controller runs it eagerly.  (With ``use_fused_kernel`` the CPU
   runs B3's plain version, not the kernel's wrapper the card captures:
   ``chip_smoke.py`` phases 13 and 29 capture that configuration.)
+- ``examples/test_vtol.py``'s RTI robot with ``use_fused_kernel``
+  (VTOL2D N=30, M=120, past the JAX package's fused width of 64): a control
+  step goes through the fused solve once, and its control agrees with the
+  same step through the general solve within 5e-3 (the kernel envelope).
 """
 
 import csv
@@ -208,3 +212,27 @@ def test_step_reads_nothing_back_to_the_host(case):
     with HostReads() as audit:
         tt.step(c.cfg, c.spec, c.state, wps, n_wps, known, unknown)
     assert audit.seen == []
+
+
+def test_vtol_rti_step_goes_through_the_fused_solve():
+    from safe_control_tpu_torch.envs.env import Env
+    from safe_control_tpu_torch.solvers import mpc_fused
+
+    spec = {"model": "VTOL2D", "radius": 0.6, "v_max": 20.0, "reached_threshold": 1.0,
+            "mpc_horizon": 30, "mpc_rti": True}
+    pillars = np.hstack([np.asarray([[37.0, float(y), 0.5] for y in range(6, 10)]),
+                         np.zeros((4, 4))])
+    us = {}
+    for fused in (True, False):
+        c = LocalTrackingController([2.0, 10.0, 0.0, 20.0, 0.0, 0.0],
+                                    dict(spec, use_fused_kernel=fused),
+                                    controller_type={"pos": "mpc_cbf"}, dt=0.05,
+                                    env=Env(width=75.0, height=20.0), device="cpu")
+        c.obs = pillars
+        c.set_waypoints(np.asarray([[2.0, 10.0], [45.0, 10.0]]))
+        before = mpc_fused.DISPATCH_COUNT
+        c.control_step()
+        assert mpc_fused.DISPATCH_COUNT == before + fused
+        us[fused] = np.asarray(c.u_pos)
+    assert np.isfinite(us[True]).all()
+    assert np.abs(us[True] - us[False]).max() < 5e-3

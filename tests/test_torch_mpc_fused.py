@@ -17,6 +17,12 @@ geometries and gates of the JAX kernel's own tests
 - in float64 at Quad3D N=10 with the full 8x3 budget, against JAX
   ``mpc_cbf.solve`` in float64: 1e-6.  A wrong tangent breaks this.
 
+Past the JAX package's width cap (M = 64, Mosaic's): VTOL2D N=17 (M=68)
+at the RTI budget against JAX's general ``mpc_cbf.solve`` (float64 within
+1e-6, float32 within 5e-3), and VTOL2D N=30 (M=120, the RTI controller's
+solve) against the port's general ``mpc_cbf.solve`` on the same cold starts
+(|du| < 5e-3, viol atol 1e-3); JAX is not run at that width.
+
 The six instantiations that came with Unicycle2D, the KinematicBicycle2D
 family, Quad2D and Manipulator2D: the plain version in float64 against
 JAX's ``mpc_cbf.solve`` at 1e-6 (N=6, the full budget), and in float32
@@ -88,6 +94,15 @@ def quad3d_problem(N, B=1, seed=None):
     obs = np.tile(np.asarray(pad_obstacles(jnp.asarray([[3.0, 1.0, 0.5, 0, 0, 0, 0]],
                                                        jnp.float32), 5))[None], (B, 1, 1))
     return [x0, goal, obs, np.zeros((B, 4)), np.zeros((B, N, 4))]
+
+
+def vtol_corridor(N, B=2):
+    """``chip_smoke.vtol_starts``' VTOL2D cold starts 12-22 m before the
+    corridor's pillar row (``tests/test_vtol_e2e.py``), cruising at 12-14
+    m/s near z=10, goal (45, 10); as numpy."""
+    import chip_smoke
+
+    return [t.double().numpy() for t in chip_smoke.vtol_starts("cpu", B, N=N)]
 
 
 def torch_fused(name, inputs, cfg, dtype=torch.float32, fn=tfused.solve_fused_batch):
@@ -167,15 +182,53 @@ def test_reference_f64_matches_jax_solve_f64_quad3d_n10():
     assert np.abs(got.xs.numpy() - xs_ref).max() <= 1e-6
 
 
+@pytest.mark.parametrize("dtype,tol,viol_tol", [(jnp.float64, 1e-6, 1e-6),
+                                                (jnp.float32, 5e-3, 1e-3)])
+def test_reference_matches_jax_solve_vtol2d_past_the_jax_width_cap(dtype, tol, viol_tol):
+    """VTOL2D N=17 (M=68, above JAX's fused cap of 64) at the RTI budget on
+    corridor cold starts: the port's fused solve against JAX's general
+    solve, in float64 and in float32."""
+    cfg = jmpc.MPCConfig(horizon=17, num_obs=5, outer_iters=2, newton_iters=2)
+    inputs = vtol_corridor(17)
+    if dtype == jnp.float32:
+        inputs = [a.astype(np.float32) for a in inputs]
+    u_ref, viol_ref, xs_ref = jax_solve(VTOL_2D, make_spec(VTOL_2D), inputs, cfg, dtype)
+    got = torch_fused(VTOL_2D, inputs, cfg, dtype=torch.float64 if dtype == jnp.float64
+                      else torch.float32, fn=tfused.solve_fused_batch_reference)
+    assert np.isfinite(u_ref).all()
+    assert np.abs(got.u.numpy() - u_ref).max() <= tol
+    assert np.abs(got.viol.numpy() - viol_ref).max() <= viol_tol
+
+
+def test_reference_matches_general_solve_vtol2d_n30_rti():
+    """The RTI controller's solve, VTOL2D N=30 (M=120), through the fused
+    plain version and the port's general ``mpc_cbf.solve`` (its D-step
+    factor) on the same cold starts: the whole U within 5e-3, viol atol
+    1e-3."""
+    cfg = tmpc.MPCConfig.rti(horizon=30, num_obs=5)
+    spec = interop.spec_from_jax(make_spec(VTOL_2D))
+    args = [torch.as_tensor(a, dtype=torch.float32) for a in vtol_corridor(30)]
+    assert tfused.fused_available(VTOL_2D, cfg)
+    fused = tfused.solve_fused_batch_reference(VTOL_2D, spec, *args, DT, cfg)
+    st = tmpc.init_state(VTOL_2D, cfg, 2)._replace(U=args[4])
+    general = tmpc.solve(VTOL_2D, spec, *args[:4], st, DT, cfg)
+    assert torch.isfinite(fused.U).all() and (fused.U != args[4]).any()
+    assert (fused.U - general.state.U).abs().max().item() < 5e-3
+    assert (fused.viol - general.viol).abs().max().item() <= 1e-3
+
+
 def _jax_cfg(**kw):
     return jmpc.MPCConfig(num_obs=5, use_fused_kernel=True, **kw)
 
 
 @pytest.mark.parametrize("model_name,cfg", [
     (QUAD_3D, _jax_cfg(horizon=10)),
-    (QUAD_3D, _jax_cfg(horizon=16)),  # M = 64, the widest admitted
+    (QUAD_3D, _jax_cfg(horizon=16)),  # M = 64, the widest JAX admits
     (QUAD_3D, _jax_cfg(horizon=17)),  # M = 68
-    (VTOL_2D, _jax_cfg(horizon=30)),  # M = 120, the open question
+    (QUAD_3D, _jax_cfg(horizon=32)),  # M = 128, the widest the port admits
+    (QUAD_3D, _jax_cfg(horizon=33)),  # M = 132
+    (VTOL_2D, _jax_cfg(horizon=30)),  # M = 120, the RTI controller's solve
+    (DYNAMIC_UNICYCLE_2D, _jax_cfg(horizon=40, polish_iters=1)),  # M = 80 with the polish
     (DYNAMIC_UNICYCLE_2D, _jax_cfg(horizon=8, optimal_decay=True)),
     (DYNAMIC_UNICYCLE_2D, _jax_cfg(horizon=8, polish_iters=2)),
     (DYNAMIC_UNICYCLE_2D, _jax_cfg(horizon=8, newton_f64=True)),
@@ -194,8 +247,18 @@ def _jax_cfg(**kw):
     ("DriftingCar", _jax_cfg(horizon=30, polish_iters=1)),
 ])
 def test_fused_available_agrees_with_jax(model_name, cfg):
-    assert tfused.fused_available(model_name, interop.config_from_jax(cfg)) == \
-        jfused.fused_available(model_name, cfg)
+    """At M <= 64 and past M = 128 the port's rule is JAX's.  Between them
+    JAX refuses by its width cap (Mosaic's compile limit), and the port
+    admits exactly what JAX's rule admits apart from that cap: JAX's
+    answer for the same configuration at a width it takes."""
+    M = cfg.horizon * jmpc.get_model(model_name).N_CONTROLS
+    got = tfused.fused_available(model_name, interop.config_from_jax(cfg))
+    if M <= 64 or M > 128:
+        assert got == jfused.fused_available(model_name, cfg)
+    else:
+        assert not jfused.fused_available(model_name, cfg)
+        narrow = cfg._replace(horizon=64 // jmpc.get_model(model_name).N_CONTROLS)
+        assert got == jfused.fused_available(model_name, narrow)
 
 
 def test_fused_available_needs_a_cuda_instantiation():
@@ -235,9 +298,9 @@ def test_solve_dispatch_routes_to_the_fused_solve():
 
 def test_solve_dispatch_falls_back_with_one_log_record(caplog):
     spec = interop.spec_from_jax(make_spec(QUAD_3D))
-    xs, goals, obs, ups, _ = _quad_inputs(N=17)
-    wide = tmpc.MPCConfig(horizon=17, num_obs=5, outer_iters=1, newton_iters=1,
-                          use_fused_kernel=True)  # M = 68 > 64
+    xs, goals, obs, ups, _ = _quad_inputs(N=33)
+    wide = tmpc.MPCConfig(horizon=33, num_obs=5, outer_iters=1, newton_iters=1,
+                          use_fused_kernel=True)  # M = 132 > 128
     st = tmpc.init_state(QUAD_3D, wide, 2)
     tmpc._FUSED_FALLBACK_SEEN.clear()
     before = tfused.DISPATCH_COUNT
@@ -246,7 +309,7 @@ def test_solve_dispatch_falls_back_with_one_log_record(caplog):
         again = tmpc.solve_dispatch(QUAD_3D, spec, xs, goals, obs, ups, st, DT, wide)
     assert tfused.DISPATCH_COUNT == before
     records = [r for r in caplog.records if "fell back" in r.getMessage()]
-    assert len(records) == 1 and "M=17*m" in records[0].getMessage()
+    assert len(records) == 1 and "M=33*m" in records[0].getMessage()
     want = tmpc.solve(QUAD_3D, spec, xs, goals, obs, ups, st, DT, wide)
     assert torch.equal(res.u, want.u) and torch.equal(again.u, want.u)
 
@@ -355,6 +418,26 @@ def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch):
     kern = tfused.solve_fused_batch(QUAD_3D, spec, *ins, DT, cfg)
     torch.cuda.synchronize()
     assert tfused.LAUNCH_COUNT == before + 1
+    assert (kern.U - plain.U).abs().max().item() < 5e-3
+    assert (kern.xs - plain.xs).abs().max().item() < 5e-3
+    assert (kern.viol - plain.viol).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_wide_kernel_matches_plain_version_on_card(cuda_device):
+    """On a card: VTOL2D N=30 (M=120, Jc in the global workspace) at the
+    RTI budget, one launch, within the kernel envelope of its plain version."""
+    cfg = tmpc.MPCConfig.rti(horizon=30, num_obs=5)
+    spec = interop.spec_from_jax(make_spec(VTOL_2D))
+    ins = [torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+           for a in vtol_corridor(30, B=64)]
+    assert tfused.workspace_floats(VTOL_2D, spec, DT, cfg) == 120 * 330
+    plain = tfused.solve_fused_batch_reference(VTOL_2D, spec, *ins, DT, cfg)
+    before = tfused.LAUNCH_COUNT
+    kern = tfused.solve_fused_batch(VTOL_2D, spec, *ins, DT, cfg)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCH_COUNT == before + 1
+    assert torch.isfinite(kern.U).all()
     assert (kern.U - plain.U).abs().max().item() < 5e-3
     assert (kern.xs - plain.xs).abs().max().item() < 5e-3
     assert (kern.viol - plain.viol).abs().max().item() <= 1e-3

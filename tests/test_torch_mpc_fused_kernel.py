@@ -14,6 +14,11 @@ float32 inputs with the full 8x3 budget:
   which the CPU rounds as the card does once the plain version gets a
   correctly rounded ``torch.sqrt``.  Every shipped model has an even m, so
   no M leaves a tile half outside H;
+- bit for bit beyond a block's shared memory, at the RTI budget: Quad3D
+  N=30 (M=120; Jr, Jc and the arrays that reuse Jr's space in the global
+  workspace) and, with the IEEE build below, VTOL2D N=30 (Jc alone there)
+  and DynamicUnicycle2D N=64 (M=128, the widest); the workspace is filled
+  with NaN bytes as shared memory is;
 - within the kernel-class envelope of ``chip_smoke.py``'s phase 10 (max
   |du| and |dxs| < 5e-3, viol atol 1e-3) at DynamicUnicycle2D N=8 and
   VTOL2D N=16, whose ``sinf``/``cosf``/``powf``/``expf``/``atan2f`` come
@@ -72,10 +77,11 @@ def _build(tmp_path_factory, ieee_math):
     lib = cuda_on_cpu.build(CSRC / "mpc_fused_kernel.cu", tmp_path_factory.mktemp("fused_cpu"),
                             ieee_math=ieee_math)
     lib.mpc_fused_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.mpc_fused_launch.restype = ctypes.c_int
-    lib.mpc_fused_shared_bytes.argtypes = [ctypes.c_int] * 5
-    lib.mpc_fused_shared_bytes.restype = ctypes.c_int
+    for fn in (lib.mpc_fused_shared_bytes, lib.mpc_fused_workspace_floats):
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -93,7 +99,8 @@ def ieee_lib(tmp_path_factory):
 
 def launch(lib, model_name, spec, args, cfg):
     """One launch of the CPU build as ``solve_fused_batch`` makes it on a
-    card; (U (B, N, m), xs (B, N+1, n), viol (B,))."""
+    card, the workspace of a wide layout filled with NaN bytes as the
+    emulation fills shared memory; (U (B, N, m), xs (B, N+1, n), viol (B,))."""
     pb = mf._problem(model_name, spec, cfg)
     B, M = args[0].shape[0], pb.N * pb.m
     params = torch.tensor(mf.kernel_params(model_name, spec, entry.DT, cfg), dtype=torch.float32)
@@ -101,10 +108,13 @@ def launch(lib, model_name, spec, args, cfg):
     U = torch.full((B, M), float("nan"))
     xs = torch.full((B, (pb.N + 1) * pb.n), float("nan"))
     viol = torch.full((B,), float("nan"))
+    ws_floats = lib.mpc_fused_workspace_floats(*mf._shape_args(model_name, spec, entry.DT, cfg))
+    ws = torch.full((B * ws_floats,), -1, dtype=torch.int32).view(torch.float32)  # NaN bytes
     err = lib.mpc_fused_launch(
         mf.MODEL_IDS[model_name], *(t.contiguous().data_ptr() for t in args[:4]),
-        U0.data_ptr(), params.data_ptr(), U.data_ptr(), xs.data_ptr(), viol.data_ptr(), B,
-        pb.N, pb.K, len(pb.bounded), params.numel(), cfg.outer_iters, cfg.newton_iters, None)
+        U0.data_ptr(), params.data_ptr(), U.data_ptr(), xs.data_ptr(), viol.data_ptr(),
+        ws.data_ptr() if ws_floats else None, B, pb.N, pb.K, len(pb.bounded), params.numel(),
+        cfg.outer_iters, cfg.newton_iters, None)
     assert err == 0
     return U.reshape(B, pb.N, pb.m), xs.reshape(B, pb.N + 1, pb.n), viol
 
@@ -121,7 +131,7 @@ def integrator_problems(model_name, N, B, obstacles, seed=11):
             obs, torch.zeros((B, 2)), torch.zeros((B, N, 2)))
 
 
-def vtol_problems(B, seed=11):
+def vtol_problems(B, seed=11, N=16):
     """chip_smoke.py's phase 10c starts: cruise at 10-13 m/s near (7, 38)."""
     rng = np.random.default_rng(seed)
     xs = np.concatenate([rng.uniform(5, 10, (B, 1)), rng.uniform(36, 40, (B, 1)),
@@ -130,7 +140,7 @@ def vtol_problems(B, seed=11):
     goals = torch.tensor([80.0, 40.0, 0, 0, 0, 0]).repeat(B, 1)
     obs = pad_obstacles([[40.0, 35.0, 3.0, 0, 0, 0, 0]], 5)[None].repeat(B, 1, 1)
     return (torch.as_tensor(xs, dtype=torch.float32), goals, obs, torch.zeros((B, 4)),
-            torch.zeros((B, 16, 4)))
+            torch.zeros((B, N, 4)))
 
 
 CIRCLES = [[2.5, 0.8, 0.4, 0, 0, 0, 0], [4.0, -0.4, 0.6, 0, 0, 0, 0]]
@@ -199,17 +209,86 @@ def test_shared_memory_layout(cpu_lib):
     Quad3D N=10 five blocks fit an SM's 228 KB (1 KB of it reserved a
     block), at VTOL2D N=16 two; the first port's layout took 58,232 and
     136,996 bytes.  An obstacle takes 12 floats (the moving circle's
-    velocity and r + radius among them)."""
-    sm_bytes, reserved = 233_472, 1_024
-    sizes = {}
-    for model_name, N in ((QUAD_3D, 10), (VTOL_2D, 16)):
+    velocity and r + radius among them).  Neither needs a workspace.
+
+    VTOL2D N=30 (M=120, NR=300, NC=330) would take 375,728 bytes, above a
+    block's 232,448: its scaled Jc (M NC floats) goes to the workspace and
+    the rest, Jr's 144,000 bytes among it, stays in shared memory, one block
+    an SM.  At Quad3D N=30 (NR=480) that is still too large, and Jr with
+    the arrays that reuse its space goes there too."""
+    sm_bytes, reserved, block_max = 233_472, 1_024, 232_448
+    sizes, ws = {}, {}
+    for model_name, N in ((QUAD_3D, 10), (VTOL_2D, 16), (VTOL_2D, 30), (QUAD_3D, 30)):
         spec, cfg = make_spec(model_name), mpc_cbf.MPCConfig(horizon=N, num_obs=5)
-        sizes[model_name] = cpu_lib.mpc_fused_shared_bytes(
-            *mf._shape_args(model_name, spec, entry.DT, cfg))
-    assert sizes == {QUAD_3D: 44_932, VTOL_2D: 111_072}
-    assert sm_bytes // (sizes[QUAD_3D] + reserved) == 5
-    assert sm_bytes // (sizes[VTOL_2D] + reserved) == 2
+        shape = mf._shape_args(model_name, spec, entry.DT, cfg)
+        sizes[model_name, N] = cpu_lib.mpc_fused_shared_bytes(*shape)
+        ws[model_name, N] = cpu_lib.mpc_fused_workspace_floats(*shape)
+    assert (sizes[QUAD_3D, 10], sizes[VTOL_2D, 16]) == (44_932, 111_072)
+    assert ws[QUAD_3D, 10] == ws[VTOL_2D, 16] == 0
+    assert sm_bytes // (sizes[QUAD_3D, 10] + reserved) == 5
+    assert sm_bytes // (sizes[VTOL_2D, 16] + reserved) == 2
+    assert sizes[VTOL_2D, 30] == 375_728 - 120 * 330 * 4 == 217_328
+    assert ws[VTOL_2D, 30] == 120 * 330
+    assert sm_bytes // (sizes[VTOL_2D, 30] + reserved) == 1
+    NR, NC = 30 * 16, 30 * 5  # Quad3D: no bounded state
+    assert ws[QUAD_3D, 30] == 120 * (NR + NC)
+    assert sizes[QUAD_3D, 30] <= block_max and sizes[VTOL_2D, 30] <= block_max
     assert cpu_lib.mpc_fused_threads() == 128
+
+
+@pytest.mark.parametrize("model_name,N,lib_name", [
+    (QUAD_3D, 30, "cpu_lib"),  # M=120: Jr, Jc, L, the candidates and their rows in the workspace
+    (VTOL_2D, 30, "ieee_lib"),  # M=120: Jc alone there
+    (DYNAMIC_UNICYCLE_2D, 64, "ieee_lib"),  # M=128, every thread a variable: both there
+])
+def test_wide_layout_is_bit_identical_to_plain_version(request, monkeypatch, model_name, N,
+                                                       lib_name):
+    """Past a block's shared memory, at the RTI budget, B=2.  The workspace
+    starts as NaN bytes, so a read of a workspace entry before its write
+    shows."""
+    lib = request.getfixturevalue(lib_name)
+    spec = make_spec(model_name)
+    cfg = mpc_cbf.MPCConfig.rti(horizon=N, num_obs=5)
+    if model_name == QUAD_3D:
+        monkeypatch.setattr(torch, "sqrt", cuda_on_cpu.ieee_sqrt)
+        args = entry.build_fused_step(2, horizon=N, device="cpu")[1]
+    elif model_name == VTOL_2D:
+        cuda_on_cpu.ieee_math(monkeypatch)
+        args = vtol_problems(2, N=N)
+    else:
+        cuda_on_cpu.ieee_math(monkeypatch)
+        spec = make_spec(model_name, a_max=1.0, w_max=0.5)
+        args = entry.build_fused_step(2, model_name=model_name, horizon=N, device="cpu")[1]
+    shape = mf._shape_args(model_name, spec, entry.DT, cfg)
+    pb = mf._problem(model_name, spec, cfg)
+    M, NR, NC = N * pb.m, N * (pb.n + pb.m), N * (pb.K + 2 * len(pb.bounded))
+    want = M * NC if model_name == VTOL_2D else M * (NR + NC)
+    assert lib.mpc_fused_workspace_floats(*shape) == want
+    U, xs, viol = launch(lib, model_name, spec, args, cfg)
+    plain = mf.solve_fused_batch_reference(model_name, spec, *args, entry.DT, cfg)
+    assert torch.isfinite(plain.U).all() and (plain.U != args[4]).any()
+    assert torch.equal(U, plain.U)
+    assert torch.equal(xs, plain.xs)
+    assert torch.equal(viol, plain.viol)
+
+
+def test_launch_refuses_a_missing_workspace_and_a_width_past_a_block(cpu_lib):
+    """A wide layout without its workspace, and M=132 (more variables than
+    threads), return cudaErrorInvalidValue (1) and write nothing."""
+    for N in (30, 33):
+        spec, cfg = make_spec(QUAD_3D), mpc_cbf.MPCConfig.rti(horizon=N, num_obs=5)
+        args = entry.build_fused_step(1, horizon=N, device="cpu")[1]
+        pb = mf._problem(QUAD_3D, spec, cfg)
+        params = torch.tensor(mf.kernel_params(QUAD_3D, spec, entry.DT, cfg))
+        U = torch.full((1, N * pb.m), float("nan"))
+        ws = torch.full((120 * 1000,), float("nan"))
+        err = cpu_lib.mpc_fused_launch(
+            mf.MODEL_IDS[QUAD_3D], *(t.contiguous().data_ptr() for t in args[:4]),
+            args[4].contiguous().data_ptr(), params.data_ptr(), U.data_ptr(), U.data_ptr(),
+            U.data_ptr(), None if N == 30 else ws.data_ptr(), 1, N, pb.K, len(pb.bounded),
+            params.numel(), cfg.outer_iters, cfg.newton_iters, None)
+        assert err == 1
+        assert torch.isnan(U).all()
 
 
 def test_parameter_block_is_made_once_per_values_and_device(monkeypatch):
