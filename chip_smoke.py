@@ -338,21 +338,24 @@ def ptxas_summary(report: str, keep=None) -> str:
     return " | ".join(out)
 
 
-def fused_ptxas(report: str) -> list:
+def fused_ptxas(report: str, clock: bool = False) -> list:
     """``(model, wide, registers, stack and spills)`` of each instantiation
-    of the fused kernel: the model is the mangled template argument, and
-    ``wide`` its second one (the layout with a global workspace; False for
-    a build without it)."""
-    out, model, wide, frame = [], "", False, ""
+    of the fused kernel without its phase clock (with ``clock``, of each
+    with it): the model is the mangled template argument, ``wide`` its
+    second one (the layout with a global workspace; False for a build
+    without it) and the clock its pack (the buffer's pointer, or empty)."""
+    out, model, wide, clocked, frame = [], "", False, False, ""
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
             found = re.search(r"IN9mpc_fused(\d+)", ln)
             model = ln[found.end():found.end() + int(found.group(1))] if found else "?"
-            wide = found is not None and ln[found.end() + int(found.group(1)):].startswith(
-                "ELb1E")
+            args = re.match(r"ELb([01])E(?:J(Py)?E)?",
+                            ln[found.end() + int(found.group(1)):]) if found else None
+            wide = args is not None and args.group(1) == "1"
+            clocked = args is not None and args.group(2) is not None
         elif "bytes stack frame" in ln:
             frame = ln.strip()
-        elif "Used" in ln and "registers" in ln:
+        elif "Used" in ln and "registers" in ln and clocked == clock:
             out.append((model, wide, ln.split("Used")[1].split(",")[0].strip(), frame))
     return out
 
@@ -2532,11 +2535,11 @@ def main() -> None:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
-    # ---- phase 1: build (all three kernels, one nvcc each, started together;
+    # ---- phase 1: build (the three kernels and B3's clock, one nvcc each, started together;
     # the QP and fused kernels finish in the background while phases 2-8 run)
-    nvcc_pool = concurrent.futures.ThreadPoolExecutor(2)
+    nvcc_pool = concurrent.futures.ThreadPoolExecutor(3)
     builds = {name: nvcc_pool.submit(_build.build_all, [name])
-              for name in ("qp_admm_kernel", "mpc_fused_kernel")}
+              for name in ("qp_admm_kernel", "mpc_fused_kernel", "mpc_fused_clock")}
     nvcc_pool.shutdown(wait=False)
     _build.build_all(["mpc_du_kernel"])
     _build.load_mpc_du_kernel()
@@ -2817,6 +2820,7 @@ def main() -> None:
     elapsed("phase 9")
     # ---- phase 9: the fused MPC kernel's build ----------------------------------
     builds["mpc_fused_kernel"].result()
+    builds["mpc_fused_clock"].result()
     _build.load_mpc_fused_kernel()
     info = _build.BUILD_INFO["mpc_fused_kernel"]
     q3_spec = make_spec(QUAD_3D)

@@ -28,8 +28,13 @@ memory) is launched with one; where both builds have it, they are also held
 to each other and timed on the RTI budget at B=64 at VTOL2D N=30 (M=120,
 Jc in the workspace), Quad3D N=30 and DynamicUnicycle2D N=64 (M=120 and
 128, Jr and Jc there), and where only this one has it, this one is held
-to its plain version and timed there alone.  Exits non-zero when a check
-fails or there is no card.
+to its plain version and timed there alone.  At the benchmark cells' shape
+(DynamicUnicycle2D N=10 at B=1 and 4096) it also runs this build with its
+phase clock on (``csrc/mpc_fused_clock.cu``, built beside it): the same
+bits, the totals tiling each block's cycles, the phases' shares, and the
+times of the three in turns (other, this, this with the clock, the clock,
+this, other; three rounds).  Exits non-zero when
+a check fails or there is no card.
 """
 
 from __future__ import annotations
@@ -133,18 +138,21 @@ def main() -> None:
     other_src = copy / "mpc_fused_kernel.cu"
     if "mpc_fused_blocks_per_sm" not in other_src.read_text():
         other_src.write_text(other_src.read_text() + OCCUPANCY_SHIM)
-    jobs = {"this": csrc / "mpc_fused_kernel.cu", "other": other_src}
+    jobs = {"this": csrc / "mpc_fused_kernel.cu", "other": other_src,
+            "clock": csrc / "mpc_fused_clock.cu"}
     built = build_all(jobs)
     for lib, _ in built.values():
         lib.wide = hasattr(lib, "mpc_fused_workspace_floats")  # the launch takes a workspace
+        lib.traced = hasattr(lib, "mpc_fused_trace_fields")  # and the phase clock's buffer
         lib.mpc_fused_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * (10 if lib.wide else 9) + [ctypes.c_int] * 7
-            + [ctypes.c_void_p])
+            [ctypes.c_int] + [ctypes.c_void_p] * (9 + lib.wide + lib.traced)
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.mpc_fused_launch.restype = ctypes.c_int
         for fn in [lib.mpc_fused_shared_bytes] + ([lib.mpc_fused_workspace_floats]
                                                   if lib.wide else []):
             fn.argtypes = [ctypes.c_int] * 5
             fn.restype = ctypes.c_int
+    clock_lib, clock_report = built.pop("clock")  # this build's clocked instantiations
 
     specs = {QUAD_3D: make_spec(QUAD_3D), VTOL_2D: make_spec(VTOL_2D),
              DYNAMIC_UNICYCLE_2D: make_spec(DYNAMIC_UNICYCLE_2D, a_max=1.0, w_max=0.5),
@@ -180,6 +188,9 @@ def main() -> None:
                        f"shared, {per_sm} blocks an SM")
         print(f"build {name} ({jobs[name]}): " + "; ".join(occ)
               + f"; ptxas: {regs}")
+    print(f"build clock ({jobs['clock']}): ptxas: " + "; ".join(
+        f"{mdl}{' (wide)' if wide else ''}: {r}, {frame}"
+        for mdl, wide, r, frame in fused_ptxas(clock_report, clock=True)))
 
     # ---- problems ---------------------------------------------------------------
     rng = np.random.default_rng(11)
@@ -208,9 +219,10 @@ def main() -> None:
         problems[(model, ib)] = (i_xs, i_goal, two_obs, torch.zeros((ib, 2), device=dev),
                                  torch.zeros((ib, 10, 2), device=dev))
 
-    def launcher(lib, model, args, cf=None):
+    def launcher(lib, model, args, cf=None, clock=None):
         """A launch of ``lib`` as ``solve_fused_batch`` makes it; ``run()``
-        launches, ``run.outs`` holds (U, xs, viol)."""
+        launches, ``run.outs`` holds (U, xs, viol).  ``clock``: the phase
+        clock's buffer (a build that has one), or none."""
         sp, cf = specs[model], cf or cfgs[model]
         pb = mf._problem(model, sp, cf)
         B, M = args[0].shape[0], pb.N * pb.m
@@ -225,6 +237,7 @@ def main() -> None:
         ws = torch.empty((B * ws_floats,), device=dev)
         call = (shape[0], *(t.data_ptr() for t in ins), U0.data_ptr(), params.data_ptr(),
                 *(t.data_ptr() for t in outs), *([ws.data_ptr() or None] if lib.wide else []),
+                *([None if clock is None else clock.data_ptr()] if lib.traced else []),
                 B, *shape[1:], cf.outer_iters, cf.newton_iters,
                 torch.cuda.current_stream().cuda_stream)
 
@@ -232,7 +245,7 @@ def main() -> None:
             err = lib.mpc_fused_launch(*call)
             if err != 0:
                 raise SystemExit(f"launch failed: CUDA error {err}")
-        run.tensors = ins + [U0, params, ws]  # alive as long as the launches that read them
+        run.tensors = ins + [U0, params, ws, clock]  # alive as long as the launches reading them
         run.outs = outs
         return run
 
@@ -270,6 +283,38 @@ def main() -> None:
         ms = [(name, sync_time(runs[name], reps)) for name in ("other", "this", "this", "other")]
         print(f"[{card}] {model} N={cfgs[model].horizon} B={B}: "
               + ", ".join(f"{name} {t:.4f} ms" for name, t in ms))
+
+    # ---- the benchmark cells' shape, DynamicUnicycle2D N=10 (M=20) at B=1 and 4096:
+    # with the phase clock off, other against this; this with the clock on ("clock")
+    # against off, its totals' tiling and Newton steps ----------------------------------
+    du10 = mpc_cbf.MPCConfig(horizon=10, num_obs=5)
+    totals = torch.zeros((clock_lib.mpc_fused_trace_slots(), clock_lib.mpc_fused_trace_fields()),
+                         dtype=torch.int64, device=dev)
+    k = len(mf.PHASES)
+    for B, reps in ((1, 50), (4096, 10)):
+        args = entry.build_fused_step(B, model_name=DYNAMIC_UNICYCLE_2D, horizon=10,
+                                      device=dev)[1]
+        runs = {name: launcher(lib_, DYNAMIC_UNICYCLE_2D, args, du10)
+                for name, (lib_, _) in built.items()}
+        runs["clock"] = launcher(clock_lib, DYNAMIC_UNICYCLE_2D, args, du10, clock=totals)
+        totals.zero_()
+        for run in runs.values():
+            run()
+        torch.cuda.synchronize()
+        same = {name: all(torch.equal(a, b) for a, b in zip(runs["this"].outs, run.outs))
+                for name, run in runs.items() if name != "this"}
+        t = totals[:B].cpu()
+        tiled = bool(torch.equal(t[:, :k].sum(1), t[:, 2 * k + 1]))
+        share = {p: float(t[:, i].sum() / t[:, 2 * k + 1].sum()) for i, p in enumerate(mf.PHASES)}
+        print(f"DU N=10 B={B}: this vs other bit-identical {same['other']}, clock on vs off "
+              f"{same['clock']}; clock totals tile the blocks {tiled}, Newton steps a problem "
+              f"{t[:, k + 1].float().mean().item():.1f}, active rows a step "
+              f"{t[:, 2 * k].sum().item() / max(t[:, k + 1].sum().item(), 1):.3f}; cycle shares "
+              + ", ".join(f"{p} {100 * v:.2f}%" for p, v in share.items()))
+        failed |= not (same["clock"] and tiled)
+        order = ("other", "this", "clock", "clock", "this", "other") * 3
+        ms = [(name, sync_time(runs[name], reps)) for name in order]
+        print(f"[{card}] DU N=10 B={B}: " + ", ".join(f"{name} {t_:.4f} ms" for name, t_ in ms))
 
     # ---- the wide layouts, the RTI budget, B=64: VTOL2D N=30 (Jc in the workspace),
     # Quad3D N=30 and DynamicUnicycle2D N=64 (M=128; Jr and Jc both there) -----------

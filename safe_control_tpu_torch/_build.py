@@ -3,8 +3,9 @@
 Each kernel is a ``csrc/*.cu`` file with a plain C entry point, compiled for
 ``sm_90a`` into a shared library under ``build/kernels/`` at the root of the
 checkout.  The library's file name carries a hash of the sources (the
-``.cu`` and every ``csrc/*.h``) and the compiler flags, so a changed source
-builds anew at first use and an unchanged one loads from disk.
+``.cu``, the ``.cu`` files it includes, and every ``csrc/*.h``) and the
+compiler flags, so a changed source builds anew at first use and an
+unchanged one loads from disk.
 
 No ``--use_fast_math``: the kernels' numerics assume IEEE ``cosf``,
 ``sinf``, ``powf``, ``sqrtf``, ``floorf`` and division.  ``-fmad=false``
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -54,7 +56,8 @@ def _library_path(name: str) -> Path:
     # rebuilds all kernels once; that costs a build, never a wrong library.
     # (Headers are named *.h for that reason, and so ship as package data.)
     source = _CSRC / f"{name}.cu"
-    deps = [source] + sorted(_CSRC.glob("*.h"))
+    included = re.findall(r'^#include "(\w+\.cu)"', source.read_text(), flags=re.M)
+    deps = [source] + [_CSRC / f for f in included] + sorted(_CSRC.glob("*.h"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in deps:
         h.update(path.name.encode())
@@ -132,19 +135,31 @@ def load_qp_admm_kernel() -> ctypes.CDLL:
     return lib
 
 
-def load_mpc_fused_kernel() -> ctypes.CDLL:
-    """The generic fused MPC kernel library, built at first use."""
-    lib = _LIBS.get("mpc_fused_kernel")
-    if lib is None:
-        lib = ctypes.CDLL(str(build("mpc_fused_kernel")))
-        lib.mpc_fused_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        )
-        lib.mpc_fused_launch.restype = ctypes.c_int
-        for fn in (lib.mpc_fused_shared_bytes, lib.mpc_fused_blocks_per_sm,
-                   lib.mpc_fused_workspace_floats):
-            fn.argtypes = [ctypes.c_int] * 5
-            fn.restype = ctypes.c_int
-        lib.mpc_fused_threads.restype = ctypes.c_int
-        _LIBS["mpc_fused_kernel"] = lib
-    return lib
+def load_mpc_fused_kernel(clock: bool = False) -> ctypes.CDLL:
+    """The generic fused MPC kernel library, or with ``clock`` the library
+    of its instantiations with the phase clock (``csrc/mpc_fused_clock.cu``;
+    its launch takes the clock's buffer).  Both are built at the first use
+    of either, so that no build falls inside a traced run, and the clock's
+    kernels are loaded on the device then."""
+    name = "mpc_fused_clock" if clock else "mpc_fused_kernel"
+    if name not in _LIBS:
+        paths = build_all(["mpc_fused_kernel", "mpc_fused_clock"])
+        for key, path in paths.items():
+            lib = ctypes.CDLL(str(path))
+            lib.mpc_fused_launch.argtypes = (
+                [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            )
+            lib.mpc_fused_launch.restype = ctypes.c_int
+            for fn in (lib.mpc_fused_shared_bytes, lib.mpc_fused_blocks_per_sm,
+                       lib.mpc_fused_workspace_floats):
+                fn.argtypes = [ctypes.c_int] * 5
+                fn.restype = ctypes.c_int
+            for fn in (lib.mpc_fused_threads, lib.mpc_fused_trace_fields,
+                       lib.mpc_fused_trace_slots, lib.mpc_fused_load):
+                fn.restype = ctypes.c_int
+            _LIBS[key] = lib
+        err = _LIBS["mpc_fused_clock"].mpc_fused_load()
+        if err != 0:
+            raise RuntimeError(f"loading the fused kernel's clocked instantiations: CUDA error "
+                               f"{err}")
+    return _LIBS[name]

@@ -15,6 +15,12 @@ far each registered count rose while it recorded (no launch: the kernel is
 only recorded), takes that back, and every replay adds it, as the replay
 launches the recorded kernels.  The warm-up's launches are real and stay
 counted (``warmup_launches``).
+
+A kernel whose wrapper registers with ``clocked=True`` runs another
+instantiation, with a clock, while tracing is on (``utils.profiling``).  A
+step that launches one keeps a graph for each state of the switch, both on
+the same static inputs: the one it lacks is captured when the switch
+changes (before the span that saw the change opens), or at the call.
 """
 
 from __future__ import annotations
@@ -22,19 +28,31 @@ from __future__ import annotations
 import ctypes
 import sys
 import time
+import weakref
 
 import torch
+
+from safe_control_tpu_torch.utils import profiling
 
 _tree = torch.utils._pytree
 
 # name -> module of each kernel wrapper that counts its launches in a LAUNCH_COUNT
 COUNTED: dict = {}
+# names of those whose kernel has a clocked instantiation
+CLOCKED: set = set()
+# The captured steps, for the tracing switch.
+_STEPS = weakref.WeakSet()
 
 
-def count_launches(module_name: str) -> None:
+def count_launches(module_name: str, clocked: bool = False) -> None:
     """Register a kernel wrapper's module (call it from the module, with
-    ``__name__``): captures and replays keep its ``LAUNCH_COUNT`` true."""
-    COUNTED[module_name] = sys.modules[module_name]
+    ``__name__``): captures and replays keep its ``LAUNCH_COUNT`` true, and
+    ``profiling.trace_to`` reports it.  ``clocked``: its launches run
+    another instantiation while tracing is on."""
+    module = COUNTED[module_name] = sys.modules[module_name]
+    if clocked:
+        CLOCKED.add(module_name)
+    profiling.counter(f"{module_name}.LAUNCH_COUNT", lambda: module.LAUNCH_COUNT)
 
 
 def _launch_counts() -> dict:
@@ -43,10 +61,13 @@ def _launch_counts() -> dict:
 
 class CapturedStep:
     """``fn(*inputs) -> outputs``, captured at the first call when
-    ``use_graph``.  ``capture_seconds``: the capture's wall time, warm-up
-    included, once it is made; ``warmup_out`` and ``warmup_seconds``: the
-    warm-up's outputs (an eager step on the first call's inputs, which the
-    first replay reproduces) and its wall time."""
+    ``use_graph``.  ``capture_seconds``: the first capture's wall time,
+    warm-up included, once it is made; ``warmup_out`` and
+    ``warmup_seconds``: the warm-up's outputs (an eager step on the first
+    call's inputs, which the first replay reproduces) and its wall time.
+    ``graph``, ``static_out`` and ``launches`` (kernel module -> launches a
+    replay): the first capture's; ``clocked``: whether the step launches a
+    kernel with a clock."""
 
     def __init__(self, fn, use_graph: bool):
         self.fn = fn
@@ -55,10 +76,13 @@ class CapturedStep:
         self.static_in = None
         self.static_out = None
         self.capture_seconds = None
-        self.launches = {}  # kernel module -> launches a replay
+        self.launches = {}
+        self.graphs = {}  # tracing on -> (graph, outputs, launches a replay)
+        self.clocked = False
         self.warmup_launches = {}  # kernel module -> launches of the warm-up run
         self.warmup_out = None
         self.warmup_seconds = None
+        _STEPS.add(self)
 
     def __call__(self, *inputs):
         if not self.use_graph:
@@ -69,10 +93,12 @@ class CapturedStep:
             for dst, src in zip(_tree.tree_leaves(self.static_in), _tree.tree_leaves(inputs)):
                 if dst is not src:  # an output fed back unchanged is already in place
                     dst.copy_(src)
-        self.graph.replay()
-        for name, n in self.launches.items():
+        on = self.clocked and profiling.tracing()
+        graph, out, launches = self.graphs.get(on) or self._record(on)
+        graph.replay()
+        for name, n in launches.items():
             COUNTED[name].LAUNCH_COUNT += n
-        return self.static_out
+        return out
 
     def _capture(self, inputs):
         t0 = time.perf_counter()
@@ -89,22 +115,32 @@ class CapturedStep:
         after = _launch_counts()
         self.warmup_launches = {name: after[name] - before.get(name, 0) for name in after
                                 if after[name] != before.get(name, 0)}
-        try:  # keep the cudaGraph_t, for graph_nodes()
-            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        except TypeError:
-            self.graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        with torch.cuda.graph(self.graph):
-            self.static_out = self.fn(*self.static_in)
-        after = _launch_counts()
-        self.launches = {name: after[name] - before.get(name, 0) for name in after
-                         if after[name] != before.get(name, 0)}
-        for name, n in self.launches.items():  # recorded, not launched
-            COUNTED[name].LAUNCH_COUNT -= n
-        if hasattr(self.graph, "instantiate"):
-            self.graph.instantiate()
-        torch.cuda.synchronize(dev)
+        self.clocked = not CLOCKED.isdisjoint(self.warmup_launches)
+        self.graph, self.static_out, self.launches = self._record(
+            self.clocked and profiling.tracing())
         self.capture_seconds = time.perf_counter() - t0
+
+    def _record(self, on: bool):
+        """Capture ``fn`` on the static inputs with tracing ``on`` as it is
+        now: (graph, outputs, launches a replay)."""
+        dev = _tree.tree_leaves(self.static_in)[0].device
+        try:  # keep the cudaGraph_t, for graph_nodes()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+        except TypeError:
+            graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        with torch.cuda.graph(graph):
+            out = self.fn(*self.static_in)
+        after = _launch_counts()
+        launches = {name: after[name] - before.get(name, 0) for name in after
+                    if after[name] != before.get(name, 0)}
+        for name, n in launches.items():  # recorded, not launched
+            COUNTED[name].LAUNCH_COUNT -= n
+        if hasattr(graph, "instantiate"):
+            graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.graphs[on] = (graph, out, launches)
+        return self.graphs[on]
 
     def graph_nodes(self):
         """Nodes of the captured graph (``cudaGraphGetNodes``), if PyTorch
@@ -124,3 +160,14 @@ class CapturedStep:
             err = lib.cudaGraphGetNodes(ctypes.c_void_p(raw), None, ctypes.byref(n))
             return int(n.value) if err == 0 else None
         return None
+
+
+def _follow_switch(on: bool) -> None:
+    """Capture, for each step captured so far that launches a kernel with a
+    clock, its graph for the switch's new state if it has none."""
+    for step in list(_STEPS):
+        if step.clocked and on not in step.graphs:
+            step._record(on)
+
+
+profiling.on_switch(_follow_switch)

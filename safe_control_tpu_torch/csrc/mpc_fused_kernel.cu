@@ -35,11 +35,10 @@
 // the tiles in the block's list of work items, one entry a thread.
 //
 // What bounds it: the latency of each block's serial path; DRAM traffic is
-// a few hundred bytes a problem.  With one part of the Newton step skipped
-// at a time (fused_kernel_ab.py; NVIDIA H100 80GB HBM3, 700 W; Quad3D N=10,
-// B=1, 1.68 ms a solve), the factor and substitutions (3 M barriers) take
-// 0.70 ms, the dual rollouts 0.25, the line search's rollouts 0.25, grad and
-// H 0.18.  Jr and Jc are read only while grad and H are formed, so L and
+// a few hundred bytes a problem.  Where a block's time goes is read from the
+// kernel's own phase clock (below, "Phase clock"), not from the outside:
+// solvers/mpc_fused.py::trace_totals sums it, and portbench's b3_*_ms
+// metrics read it.  Jr and Jc are read only while grad and H are formed, so L and
 // the line search's arrays reuse their space: the layout takes 44,932 bytes
 // of shared memory at Quad3D N=10 (M=40) and 111,072 at VTOL2D N=16
 // (M=64), room for five and two 128-thread blocks an SM.
@@ -58,12 +57,34 @@
 // at B=4096 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 28b).
 //
 // Layout: row-major (B, ...) inputs, one problem per block; no transpose.
+//
+// Phase clock.  Each kernel has a second instantiation with the clock (its
+// pack ``Clock... trace`` the buffer; empty without), built into a library
+// of its own (mpc_fused_clock.cu, which compiles this file with
+// MPC_FUSED_CLOCK set) and launched while the host traces: there thread 0
+// reads clock64() at the barrier that closes each phase of the solve
+// (Phase, below) and adds the cycles to this problem's slot of a
+// per-device buffer of 64-bit totals, TRACE_FIELDS a slot, slot
+// b % TRACE_SLOTS for problem b: at a barrier between phases a
+// and b the stamp goes onto a's total and off b's, so each total
+// telescopes to the cycles spent in its phase and the ten tile the block's
+// total exactly.  It also counts each phase's entries and adds the active
+// rows of each Newton step.  Every add is a RED (no value returned, thread 0
+// never waits on it), and no two blocks of a launch of B <= TRACE_SLOTS
+// share an address.  This file's own library holds the instantiations
+// without the clock alone, compiled as they were before the clock existed.
+// What the clock costs is in PERF.md (fused_kernel_ab.py measures it).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "mpc_fused_dual.h"
 #include "mpc_fused_models.h"
+
+// 1: the library of the instantiations with the phase clock.
+#ifndef MPC_FUSED_CLOCK
+#define MPC_FUSED_CLOCK 0
+#endif
 
 using namespace mpc_fused;
 
@@ -88,6 +109,102 @@ constexpr int MIN_BLOCKS_WIDE = 3;
 static_assert(THREADS % 32 == 0 && THREADS >= 64, "a block is whole warps, one thread a variable");
 // The most dynamic shared memory a block may have (sm_90: 227 KB).
 constexpr int MAX_SHARED_BYTES = 232448;
+// This library's instantiations: with the phase clock or without.
+constexpr bool LIBRARY_CLOCK = MPC_FUSED_CLOCK != 0;
+
+// The phases of a solve, in the order of the buffer's totals: the loads,
+// warm start and row scales; per Newton step the dual rollouts, the active
+// rows (clamp and list), grad and H's upper triangle, the trace damping and
+// free set, the Cholesky factor, the two substitutions, the line search
+// (Hs, the six candidates, the merit, acceptance and update); per outer
+// iteration the multipliers; the outputs.
+enum Phase {
+  PROLOGUE, JACOBIAN, ROWS, HESSIAN, DAMPING, CHOLESKY, SUBSTITUTIONS, LINESEARCH, MULTIPLIERS,
+  EPILOGUE, NUM_PHASES
+};
+// A slot: the cycles of each phase, the entries of each phase, the active
+// rows summed over Newton steps, the cycles of the whole block.
+constexpr int TRACE_ACTIVE = 2 * NUM_PHASES;
+constexpr int TRACE_TOTAL = TRACE_ACTIVE + 1;
+constexpr int TRACE_FIELDS = TRACE_TOTAL + 1;
+constexpr int TRACE_SLOTS = 4096;
+
+typedef unsigned long long u64;
+
+__device__ __forceinline__ void trace_add(u64* p, u64 v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("red.relaxed.gpu.global.add.u64 [%0], %1;" ::"l"(p), "l"(v));
+#else
+  atomicAdd(p, v);
+#endif
+}
+
+// This problem's slot.  The block index and the buffer's address pass
+// through asm statements, so that the slot is computed at each stamp and
+// not kept live across the solve in registers that the solve needs.
+__device__ __forceinline__ u64* trace_slot(u64* trace) {
+  unsigned b;
+  u64* p;
+#ifdef __CUDA_ARCH__
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  asm volatile("mov.b64 %0, %1;" : "=l"(p) : "l"(trace));
+#else
+  b = blockIdx.x;
+  p = trace;
+#endif
+  return p + static_cast<size_t>(b % TRACE_SLOTS) * TRACE_FIELDS;
+}
+
+// The stamps take the clock's buffer as a pack, ``trace...``: one u64* in
+// an instantiation with the clock, none without, where they are empty and
+// the kernel's code is the solve alone.  Thread 0 at the barrier that
+// closes phase ``from`` and opens ``to``:
+template <class... Clock>
+__device__ __forceinline__ void stamp(int from, int to, Clock... trace) {
+  if constexpr (sizeof...(Clock) > 0) {
+    if (threadIdx.x == 0) {
+      u64* slot = trace_slot(trace...);
+      const u64 t = clock64();
+      trace_add(slot + from, t);
+      trace_add(slot + to, 0ull - t);
+      trace_add(slot + NUM_PHASES + to, 1ull);
+    }
+  }
+}
+
+// The block's start (into the prologue) and end (out of the epilogue).
+template <class... Clock>
+__device__ __forceinline__ void stamp_start(Clock... trace) {
+  if constexpr (sizeof...(Clock) > 0) {
+    if (threadIdx.x == 0) {
+      u64* slot = trace_slot(trace...);
+      const u64 t = clock64();
+      trace_add(slot + TRACE_TOTAL, 0ull - t);
+      trace_add(slot + PROLOGUE, 0ull - t);
+      trace_add(slot + NUM_PHASES + PROLOGUE, 1ull);
+    }
+  }
+}
+
+template <class... Clock>
+__device__ __forceinline__ void stamp_end(Clock... trace) {
+  if constexpr (sizeof...(Clock) > 0) {
+    if (threadIdx.x == 0) {
+      u64* slot = trace_slot(trace...);
+      const u64 t = clock64();
+      trace_add(slot + EPILOGUE, t);
+      trace_add(slot + TRACE_TOTAL, t);
+    }
+  }
+}
+
+// Thread 0: a Newton step's active rows.
+template <class... Clock>
+__device__ __forceinline__ void count_rows(int count, Clock... trace) {
+  if constexpr (sizeof...(Clock) > 0) {
+    trace_add(trace_slot(trace...) + TRACE_ACTIVE, static_cast<u64>(count));
+  }
+}
 
 __device__ __forceinline__ float alpha_at(int i) {
   switch (i) {
@@ -286,9 +403,11 @@ struct ValueSink {
   __device__ void con(int i, float v) { c[i] = v; }
 };
 
-template <class Model>
+// ``trace...``: the phase clock's buffer, stamped at the barriers inside
+// the step (the caller stamps its end), or none.
+template <class Model, class... Clock>
 __device__ void newton_step(const Layout& lo, float* sh, const Arrays& ar, const Obstacle* obs,
-                            float rho) {
+                            float rho, Clock... trace) {
   const int M = lo.M, NR = lo.NR, NC = lo.NC;
   const int tid = threadIdx.x;
   const float* P = sh + lo.P;
@@ -310,6 +429,7 @@ __device__ void newton_step(const Layout& lo, float* sh, const Arrays& ar, const
                            js);
   }
   __syncthreads();
+  stamp(JACOBIAN, ROWS, trace...);
   const float* act0 = sh + lo.act0;
   for (int i = tid; i < NC; i += blockDim.x) {
     sh[lo.act0 + i] = clamp_min_nan(sh[lo.lam + i] - rho * sh[lo.c0 + i], 0.0f);
@@ -323,8 +443,10 @@ __device__ void newton_step(const Layout& lo, float* sh, const Arrays& ar, const
       if (act0[i] > 0.0f) act[++count] = i;
     }
     act[0] = count;
+    count_rows(count, trace...);
   }
   __syncthreads();
+  stamp(ROWS, HESSIAN, trace...);
 
   // The upper triangle of H in 2x2 tiles, then grad, over the block.
   const int pairs = (M + 1) / 2;
@@ -378,6 +500,7 @@ __device__ void newton_step(const Layout& lo, float* sh, const Arrays& ar, const
     }
   }
   __syncthreads();
+  stamp(HESSIAN, DAMPING, trace...);
   if (tid == 0) {
     float tr = 0.0f;
     for (int i = 0; i < M; ++i) tr = tr + H[i * M + i];
@@ -407,6 +530,7 @@ __device__ void newton_step(const Layout& lo, float* sh, const Arrays& ar, const
     }
   }
   __syncthreads();
+  stamp(DAMPING, CHOLESKY, trace...);
 
   // Left-looking Cholesky, column j over the rows i >= j.
   float* tmp = sh + lo.tmp;
@@ -423,6 +547,7 @@ __device__ void newton_step(const Layout& lo, float* sh, const Arrays& ar, const
     }
     __syncthreads();
   }
+  stamp(CHOLESKY, SUBSTITUTIONS, trace...);
   // L w = gf, then L' x = w, each right-looking; the step is -x.
   float* w = sh + lo.w;
   if (tid < M) tmp[tid] = sh[lo.gf + tid];
@@ -443,6 +568,7 @@ __device__ void newton_step(const Layout& lo, float* sh, const Arrays& ar, const
     }
     __syncthreads();
   }
+  stamp(SUBSTITUTIONS, LINESEARCH, trace...);
 
   // Predicted decrease of the quadratic model, and the six candidates.
   if (tid < M) {
@@ -509,21 +635,23 @@ __device__ void newton_step(const Layout& lo, float* sh, const Arrays& ar, const
 }
 
 // ``ws``: the workspace of a WIDE layout, ``lo.ws`` floats a problem (read
-// and written by this block only); unused otherwise.
-template <class Model, bool WIDE>
+// and written by this block only); unused otherwise.  ``trace...``: the
+// phase clock's buffer (TRACE_SLOTS x TRACE_FIELDS totals), or none.
+template <class Model, bool WIDE, class... Clock>
 __global__ void __launch_bounds__(THREADS, WIDE ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
     mpc_fused_kernel(const float* __restrict__ x0, const float* __restrict__ goal,
                      const float* __restrict__ obs, const float* __restrict__ uprev,
                      const float* __restrict__ U0, const float* __restrict__ params,
                      float* __restrict__ U_out, float* __restrict__ xs_out,
                      float* __restrict__ viol_out, float* ws, int N, int K, int NB, int nP,
-                     int outer, int newton) {
+                     int outer, int newton, Clock... trace) {
   extern __shared__ float sh[];
   constexpr int n = Model::n, m = Model::m;
   const Layout lo(n, m, N, K, NB, nP);
   const Arrays ar = arrays_of<WIDE>(lo, sh, ws);
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  stamp_start(trace...);
   const int M = lo.M, NC = lo.NC;
   float* P = sh + lo.P;
   for (int i = tid; i < nP; i += blockDim.x) P[i] = params[i];
@@ -583,12 +711,18 @@ __global__ void __launch_bounds__(THREADS, WIDE ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
     sh[lo.cs + i] = 1.0f / clamp_min_nan(sqrtf(s), 1e-2f);
   }
   __syncthreads();
+  // An outer iteration opens with the dual rollouts (or, without Newton
+  // steps, the multipliers).
+  stamp(PROLOGUE, outer > 0 ? (newton > 0 ? JACOBIAN : MULTIPLIERS) : EPILOGUE, trace...);
 
   float rho = P[0];
 #pragma unroll 1
   for (int it = 0; it < outer; ++it) {
 #pragma unroll 1
-    for (int k = 0; k < newton; ++k) newton_step<Model>(lo, sh, ar, ob, rho);
+    for (int k = 0; k < newton; ++k) {
+      newton_step<Model>(lo, sh, ar, ob, rho, trace...);
+      stamp(LINESEARCH, k + 1 < newton ? JACOBIAN : MULTIPLIERS, trace...);
+    }
     // Multiplier update from the scaled constraints at U (thread 0 rolls out).
     if (tid == 0) {
       ValueSink vs{nullptr, ar.ca, nullptr, n};
@@ -601,6 +735,8 @@ __global__ void __launch_bounds__(THREADS, WIDE ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
     }
     rho = fminf(rho * P[1], P[2]);
     __syncthreads();
+    stamp(MULTIPLIERS, it + 1 < outer ? (newton > 0 ? JACOBIAN : MULTIPLIERS) : EPILOGUE,
+          trace...);
   }
 
   // Outputs: U, the rollout and the largest scaled violation.
@@ -615,19 +751,20 @@ __global__ void __launch_bounds__(THREADS, WIDE ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
       mn = (c != c || mn != mn) ? c + mn : fminf(mn, c);
     }
     viol_out[b] = clamp_min_nan(-mn, 0.0f);
+    stamp_end(trace...);
   }
 }
 
 // Allows the instantiation the block's dynamic shared memory in bytes and
 // the largest shared-memory carveout; a CUDA error code (> 0) if either is
 // refused.
-template <class Model, bool WIDE>
+template <class Model, bool WIDE, class... Clock>
 int configure(size_t bytes) {
-  cudaError_t err = cudaFuncSetAttribute(mpc_fused_kernel<Model, WIDE>,
+  cudaError_t err = cudaFuncSetAttribute(mpc_fused_kernel<Model, WIDE, Clock...>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(mpc_fused_kernel<Model, WIDE>,
+    err = cudaFuncSetAttribute(mpc_fused_kernel<Model, WIDE, Clock...>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   }
@@ -636,30 +773,31 @@ int configure(size_t bytes) {
 
 // Blocks of the instantiation that fit on one SM at once, or minus a CUDA
 // error code.
-template <class Model, bool WIDE>
-int occupancy(size_t bytes) {
-  int err = configure<Model, WIDE>(bytes);
+template <class Model, bool WIDE, class... Clock>
+int occupancy(size_t bytes, Clock...) {
+  int err = configure<Model, WIDE, Clock...>(bytes);
   int blocks = 0;
   if (err == 0) {
     err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, mpc_fused_kernel<Model, WIDE>, THREADS, bytes));
+        &blocks, mpc_fused_kernel<Model, WIDE, Clock...>, THREADS, bytes));
   }
   return err == 0 ? blocks : -err;
 }
 
-template <class Model, bool WIDE>
+template <class Model, bool WIDE, class... Clock>
 int launch(const Layout& lo, const void* x0, const void* goal, const void* obs,
            const void* uprev, const void* U0, const void* params, void* U_out, void* xs_out,
-           void* viol, void* ws, int B, int outer, int newton, cudaStream_t stream) {
+           void* viol, void* ws, int B, int outer, int newton, cudaStream_t stream,
+           Clock... trace) {
   const size_t bytes = static_cast<size_t>(lo.total) * sizeof(float);
-  const int err = configure<Model, WIDE>(bytes);
+  const int err = configure<Model, WIDE, Clock...>(bytes);
   if (err != 0) return err;
-  mpc_fused_kernel<Model, WIDE><<<B, THREADS, bytes, stream>>>(
+  mpc_fused_kernel<Model, WIDE, Clock...><<<B, THREADS, bytes, stream>>>(
       static_cast<const float*>(x0), static_cast<const float*>(goal),
       static_cast<const float*>(obs), static_cast<const float*>(uprev),
       static_cast<const float*>(U0), static_cast<const float*>(params),
       static_cast<float*>(U_out), static_cast<float*>(xs_out), static_cast<float*>(viol),
-      static_cast<float*>(ws), lo.N, lo.K, lo.NB, lo.nP, outer, newton);
+      static_cast<float*>(ws), lo.N, lo.K, lo.NB, lo.nP, outer, newton, trace...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -690,6 +828,18 @@ int with_model(int model, F&& f) {
 #undef MPC_FUSED_CASE
 }
 
+// ``f(trace...)`` with this library's clock pack: the buffer in the clock's
+// library, nothing in the plain one.
+template <class F>
+int with_library_clock(void* trace, F&& f) {
+#if MPC_FUSED_CLOCK
+  return f(static_cast<u64*>(trace));
+#else
+  (void)trace;
+  return f();
+#endif
+}
+
 }  // namespace
 
 // Dynamic shared memory (bytes) of one block, for the build report.
@@ -712,6 +862,12 @@ extern "C" int mpc_fused_workspace_floats(int model, int N, int K, int NB, int n
 // Threads a block, for the build report.
 extern "C" int mpc_fused_threads() { return THREADS; }
 
+// The phase clock's buffer: 64-bit totals a slot (the cycles of each of the
+// NUM_PHASES phases, their entries, the active rows, the block's cycles),
+// and slots (problem b adds to slot b % slots).
+extern "C" int mpc_fused_trace_fields() { return TRACE_FIELDS; }
+extern "C" int mpc_fused_trace_slots() { return TRACE_SLOTS; }
+
 // Blocks of this configuration that fit on one SM at once (the occupancy
 // calculator, after the launch's shared-memory settings); minus a CUDA
 // error code if a call is refused.
@@ -720,7 +876,10 @@ extern "C" int mpc_fused_blocks_per_sm(int model, int N, int K, int NB, int nP) 
     using Model = decltype(mdl);
     const Layout lo(Model::n, Model::m, N, K, NB, nP);
     const size_t bytes = static_cast<size_t>(lo.total) * sizeof(float);
-    return lo.ws > 0 ? occupancy<Model, true>(bytes) : occupancy<Model, false>(bytes);
+    return with_library_clock(nullptr, [&](auto... clock) {
+      return lo.ws > 0 ? occupancy<Model, true>(bytes, clock...)
+                       : occupancy<Model, false>(bytes, clock...);
+    });
   });
 }
 
@@ -728,25 +887,56 @@ extern "C" int mpc_fused_blocks_per_sm(int model, int N, int K, int NB, int nP) 
 // 3 Quad3D, 4 VTOL2D, 5 Unicycle2D, 6 KinematicBicycle2D, 7 its C3BF and
 // 8 its DPCBF variant, 9 Quad2D, 10 Manipulator2D, 11 DynamicBicycle2D,
 // 12 DriftingCar (solvers/mpc_fused.py::MODEL_IDS).  ``workspace``: B times
-// ``mpc_fused_workspace_floats`` floats, or null when that is 0.  Returns a
-// CUDA error code: cudaErrorInvalidValue for a decision vector wider than
-// a block or a missing workspace; -1 for an unknown model.
+// ``mpc_fused_workspace_floats`` floats, or null when that is 0.
+// ``trace``: the phase clock's buffer (mpc_fused_trace_slots() x
+// mpc_fused_trace_fields() 64-bit totals, which the launch adds to): given
+// to the clock's library, null to this one.  Returns a CUDA error code:
+// cudaErrorInvalidValue for a decision vector wider than a block, a missing
+// workspace or a buffer the library does not take; -1 for an unknown
+// model.
 extern "C" int mpc_fused_launch(int model, const void* x0, const void* goal, const void* obs,
                                 const void* uprev, const void* U0, const void* params,
-                                void* U_out, void* xs_out, void* viol, void* workspace, int B,
-                                int N, int K, int NB, int nP, int outer, int newton,
-                                void* stream) {
+                                void* U_out, void* xs_out, void* viol, void* workspace,
+                                void* trace, int B, int N, int K, int NB, int nP, int outer,
+                                int newton, void* stream) {
   if (B <= 0) return 0;
   return with_model(model, [&](auto mdl) {
     using Model = decltype(mdl);
     const Layout lo(Model::n, Model::m, N, K, NB, nP);
-    if (lo.M > THREADS || (lo.ws > 0 && workspace == nullptr)) {
+    if (lo.M > THREADS || (lo.ws > 0 && workspace == nullptr) ||
+        (trace != nullptr) != LIBRARY_CLOCK) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return lo.ws > 0 ? launch<Model, true>(lo, x0, goal, obs, uprev, U0, params, U_out, xs_out,
-                                           viol, workspace, B, outer, newton, st)
-                     : launch<Model, false>(lo, x0, goal, obs, uprev, U0, params, U_out, xs_out,
-                                            viol, workspace, B, outer, newton, st);
+    return with_library_clock(trace, [&](auto... clock) {
+      return lo.ws > 0 ? launch<Model, true>(lo, x0, goal, obs, uprev, U0, params, U_out, xs_out,
+                                             viol, workspace, B, outer, newton, st, clock...)
+                       : launch<Model, false>(lo, x0, goal, obs, uprev, U0, params, U_out,
+                                              xs_out, viol, workspace, B, outer, newton, st,
+                                              clock...);
+    });
   });
+}
+
+// Loads every instantiation of this library on the current device (the
+// runtime may load a kernel at its first use, which may come inside a CUDA
+// graph capture); a CUDA error code.
+extern "C" int mpc_fused_load() {
+  int err = 0;
+  for (int model = 0; err == 0; ++model) {
+    const int got = with_model(model, [&](auto mdl) {
+      using Model = decltype(mdl);
+      return with_library_clock(nullptr, [&](auto... clock) {
+        cudaFuncAttributes attr;
+        auto narrow = mpc_fused_kernel<Model, false, decltype(clock)...>;
+        auto wide = mpc_fused_kernel<Model, true, decltype(clock)...>;
+        cudaError_t e = cudaFuncGetAttributes(&attr, narrow);
+        if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, wide);
+        return static_cast<int>(e);
+      });
+    });
+    if (got == -1) break;  // past the last model
+    err = got;
+  }
+  return err;
 }

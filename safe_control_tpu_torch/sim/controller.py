@@ -42,6 +42,7 @@ from safe_control_tpu_torch.dynamics import get_model
 from safe_control_tpu_torch.perception.grid import GridSpec
 from safe_control_tpu_torch.sim import tracking
 from safe_control_tpu_torch.solvers import mpc_cbf as mpc_mod
+from safe_control_tpu_torch.utils.profiling import span
 
 _tree = torch.utils._pytree
 
@@ -337,16 +338,30 @@ class LocalTrackingController:
         return step
 
     def control_step(self) -> int:
-        """One control step; returns the tracker's return code."""
+        """One control step; returns the tracker's return code.  Traced as
+        the span ``controller.step``, with ``controller.inputs`` (the device
+        inputs), ``controller.replay`` (the copy into the graph's inputs and
+        its replay, or the eager step), ``controller.keep`` (the state's
+        copy) and ``controller.read`` (the one host read, which waits for
+        the device)."""
+        with span("controller.step"):
+            return self._control_step()
+
+    def _control_step(self) -> int:
         step = self.step_object()
-        out = step(self.state, *self._device_inputs())
+        with span("controller.inputs"):
+            inputs = self._device_inputs()
+        with span("controller.replay"):
+            out = step(self.state, *inputs)
         # A replay overwrites the graph's outputs: the controller keeps a copy,
         # so that a state read earlier stays as it was.
-        self.state = _tree.tree_map(torch.clone, out.state) if step.use_graph else out.state
+        with span("controller.keep"):
+            self.state = _tree.tree_map(torch.clone, out.state) if step.use_graph else out.state
         # One device-to-host copy for everything the host needs this step.
         u = out.u[0]
         mask = out.safety_mask[0]
-        host = torch.cat([u, out.ret.to(u.dtype), mask.flatten().to(u.dtype)]).cpu().numpy()
+        with span("controller.read"):
+            host = torch.cat([u, out.ret.to(u.dtype), mask.flatten().to(u.dtype)]).cpu().numpy()
         m = u.shape[0]
         self.u_pos = host[:m]
         self.last_safety_mask = host[m + 1:].reshape(mask.shape) > 0.5

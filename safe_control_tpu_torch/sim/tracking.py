@@ -66,6 +66,7 @@ from safe_control_tpu_torch.perception import grid as grid_mod
 from safe_control_tpu_torch.solvers import cbf_qp as cbf_qp_mod
 from safe_control_tpu_torch.solvers import mpc_cbf as mpc_mod
 from safe_control_tpu_torch.solvers import optimal_decay_cbf_qp as od_qp_mod
+from safe_control_tpu_torch.utils.profiling import span
 
 # State-machine codes.
 IDLE, TRACK, STOP, ROTATE = 0, 1, 2, 3
@@ -327,8 +328,16 @@ def step(cfg: TrackerConfig, spec, state: TrackerState, waypoints, n_waypoints, 
 
     ``waypoints (W, >=2)`` or ``(B, W, >=2)`` padded, ``n_waypoints`` the
     real count (an int, or ``(B,)``), ``known_obs`` and ``unknown_obs``
-    padded ``(K, 7)`` or ``(B, K, 7)``.
+    padded ``(K, 7)`` or ``(B, K, 7)``.  Traced as the span
+    ``tracking.step`` (the host's time to enqueue the step), with the MPC
+    solve's call as ``tracking.solve``.
     """
+    with span("tracking.step"):
+        return _step(cfg, spec, state, waypoints, n_waypoints, known_obs, unknown_obs)
+
+
+def _step(cfg: TrackerConfig, spec, state: TrackerState, waypoints, n_waypoints, known_obs,
+          unknown_obs) -> StepOutput:
     model = get_model(cfg.model_name)
     x, yaw, mode, goal_idx = state.x, state.yaw, state.mode, state.goal_idx
     B = x.shape[0]
@@ -416,10 +425,11 @@ def step(cfg: TrackerConfig, spec, state: TrackerState, waypoints, n_waypoints, 
     elif cfg.uses_mpc:
         goal_full = torch.zeros((B, model.N_STATES), dtype=dtype, device=dev)
         goal_full[:, :2] = wp
-        res = mpc_mod.solve_dispatch(
-            cfg.model_name, spec, x, goal_full, obs_sel[:, : cfg.mpc.num_obs], state.u_prev,
-            state.mpc, cfg.dt, cfg.mpc,
-        )
+        with span("tracking.solve"):
+            res = mpc_mod.solve_dispatch(
+                cfg.model_name, spec, x, goal_full, obs_sel[:, : cfg.mpc.num_obs], state.u_prev,
+                state.mpc, cfg.dt, cfg.mpc,
+            )
         # The MPC acts only in 'track'; otherwise the reference passes through.
         u = torch.where((mode == TRACK)[:, None], res.u, u_ref)
         if cfg.strict_mpc_feasibility:

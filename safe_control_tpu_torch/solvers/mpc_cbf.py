@@ -56,6 +56,7 @@ from safe_control_tpu_torch.solvers.chol import (
     chol_solve_columns,
     chol_solve_factored,
 )
+from safe_control_tpu_torch.utils import profiling
 
 # Widest system factored by the column loop of ``chol_factor`` (D^2/2 small
 # steps); a wider one is factored by ``chol_factor_steps`` and substituted by
@@ -317,6 +318,7 @@ def solve_dispatch(model_name: str, spec, x0, goal, obs, u_prev, mpc_state: MPCS
 
 
 _FUSED_FALLBACK_SEEN: set = set()
+profiling.counter(f"{__name__}._FUSED_FALLBACK_SEEN", lambda: len(_FUSED_FALLBACK_SEEN))
 
 
 def _log_fused_fallback(reason: str) -> None:

@@ -20,6 +20,11 @@ can agree to rounding on the card.
 
 ``solve_fused_batch`` launches the kernel on CUDA float32 tensors and runs
 the plain version on CPU tensors.  ``mpc_cbf.solve_dispatch`` routes to it.
+
+While tracing is on (``utils.profiling``: a profiler records), launches run
+the kernel's instantiations with its phase clock, which add each block's
+cycles by phase, the phases' entries and the active rows to a per-device
+buffer; ``trace_totals`` sums it.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from safe_control_tpu_torch.dynamics import kinematic_bicycle2d_dpcbf
 from safe_control_tpu_torch.dynamics import quad3d
 from safe_control_tpu_torch.solvers import mpc_cbf as mpc_mod
 from safe_control_tpu_torch.solvers.chol import chol_factor
+from safe_control_tpu_torch.utils import profiling
 
 # Models with a CUDA instantiation, and their id in the kernel's C entry point.
 MODEL_IDS = {
@@ -68,7 +74,7 @@ ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.0)
 # Kernel launches made by ``solve_fused_batch`` (CPU calls do not count),
 # and calls of ``solve_fused_batch`` on any device.
 LAUNCH_COUNT = 0
-graphs.count_launches(__name__)
+graphs.count_launches(__name__, clocked=True)
 DISPATCH_COUNT = 0
 
 # The kernel's parameter block on each device, by its values: a call with a
@@ -76,6 +82,60 @@ DISPATCH_COUNT = 0
 # host memory would make the host wait for the launch before it).
 _DEVICE_PARAMS: dict = {}
 _DEVICE_PARAMS_MAX = 64
+
+# The kernel's phase clock (``csrc/mpc_fused_kernel.cu``), in the order of
+# its totals.  While tracing is on (``utils.profiling``) a launch runs the
+# clock's library (``csrc/mpc_fused_clock.cu``), which adds to its device's
+# buffer (slots x fields int64 totals, problem b adding to slot b % slots);
+# the buffer is made at the device's first launch outside a capture and
+# kept, since a captured graph holds its address.
+PHASES = ("prologue", "jacobian", "rows", "hessian", "damping", "cholesky", "substitutions",
+          "linesearch", "multipliers", "epilogue")
+_TRACE: dict = {}  # device -> totals
+
+
+def _trace_buffer(lib, device):
+    """The device's totals; None inside a capture before the device's first
+    eager launch (that graph then runs without the clock)."""
+    totals = _TRACE.get(device)
+    if totals is None:
+        if torch.cuda.is_current_stream_capturing():
+            return None
+        fields = lib.mpc_fused_trace_fields()
+        if fields != 2 * len(PHASES) + 2:
+            raise RuntimeError(f"the kernel's trace slot has {fields} fields, this module "
+                               f"{2 * len(PHASES) + 2}")
+        totals = _TRACE[device] = torch.zeros((lib.mpc_fused_trace_slots(), fields),
+                                              dtype=torch.int64, device=device)
+    return totals
+
+
+def _start_clock(on: bool) -> None:
+    """At each start of tracing, the totals start from zero."""
+    if on:
+        for totals in _TRACE.values():
+            totals.zero_()
+
+
+def trace_totals():
+    """B3's phase clock since tracing last turned on, summed over problems,
+    launches and devices (waits for them): ``cycles`` and ``entries`` by
+    phase (``PHASES``), ``active_rows`` (summed over Newton steps),
+    ``newton_steps`` (the jacobian phase's entries) and ``total`` (cycles
+    of the whole blocks, which the phases' cycles tile).  None before any
+    launch on a card."""
+    if not _TRACE:
+        return None
+    t = sum(totals.sum(0).cpu() for totals in _TRACE.values()).tolist()
+    k = len(PHASES)
+    return dict(cycles=dict(zip(PHASES, t[:k])), entries=dict(zip(PHASES, t[k:2 * k])),
+                active_rows=t[2 * k], newton_steps=t[k + PHASES.index("jacobian")],
+                total=t[2 * k + 1])
+
+
+profiling.on_switch(_start_clock)
+profiling.metadata("b3_phases", trace_totals)
+profiling.counter(f"{__name__}.DISPATCH_COUNT", lambda: DISPATCH_COUNT)
 
 
 class FusedResult(NamedTuple):
@@ -156,7 +216,7 @@ def solve_fused_batch(model_name, spec, xs, goals, obs, u_prevs, U_warm, dt,
     CPU tensors go to ``solve_fused_batch_reference``; CUDA tensors must be
     float32 and launch the kernel on the current stream, with the workspace
     of a wide layout allocated on it (inside a CUDA-graph capture, from the
-    graph's pool).
+    graph's pool), and with the phase clock while tracing is on.
     """
     global LAUNCH_COUNT, DISPATCH_COUNT
     DISPATCH_COUNT += 1
@@ -174,7 +234,9 @@ def solve_fused_batch(model_name, spec, xs, goals, obs, u_prevs, U_warm, dt,
 
     from safe_control_tpu_torch import _build
 
-    lib = _build.load_mpc_fused_kernel()
+    totals = _trace_buffer(_build.load_mpc_fused_kernel(), xs.device)
+    clock = totals if profiling.tracing() else None
+    lib = _build.load_mpc_fused_kernel(clock=clock is not None)
     B, M = xs.shape[0], pb.N * pb.m
     ins = [t.contiguous() for t in (xs, goals, obs, u_prevs)]
     U0 = _warm_start(U_warm).reshape(B, M).contiguous()
@@ -191,7 +253,8 @@ def solve_fused_batch(model_name, spec, xs, goals, obs, u_prevs, U_warm, dt,
         err = lib.mpc_fused_launch(
             shape[0], *(t.data_ptr() for t in ins), U0.data_ptr(), params.data_ptr(),
             U_out.data_ptr(), xs_out.data_ptr(), viol.data_ptr(),
-            None if workspace is None else workspace.data_ptr(), B, *shape[1:],
+            None if workspace is None else workspace.data_ptr(),
+            None if clock is None else clock.data_ptr(), B, *shape[1:],
             cfg.outer_iters, cfg.newton_iters, stream,
         )
     if err != 0:

@@ -3,7 +3,8 @@
 The port's hand-written kernels run only on a card, but their arithmetic
 is plain IEEE float32 and the CUDA features they use are few: lanes that
 shuffle and ``__syncwarp``, ``__syncthreads`` over a block, static and
-dynamic shared memory.  ``build`` compiles a ``csrc/*.cu`` with g++ against
+dynamic shared memory, ``clock64`` (here the host's steady clock in
+nanoseconds) and 64-bit ``atomicAdd``.  ``build`` compiles a ``csrc/*.cu`` with g++ against
 the header below, with ``<<<...>>>`` turned into ``emu_launch``: one block
 at a time, every thread of it a fiber.  The fibers take turns at each
 barrier: ``__syncwarp`` and the shuffles wait for the 32 lanes of their
@@ -38,6 +39,7 @@ CUDA_ON_CPU = r"""
 #include <ucontext.h>
 #include <cmath>
 #include <algorithm>
+#include <chrono>
 #include <cstddef>
 #include <functional>
 #include <vector>
@@ -65,6 +67,17 @@ enum cudaFuncAttribute {
 };
 constexpr int cudaSharedmemCarveoutMaxShared = 100;
 static inline int cudaGetLastError() { return 0; }
+// The SM's cycle counter: the host's steady clock in nanoseconds.
+static inline long long clock64() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+      std::chrono::steady_clock::now().time_since_epoch()).count();
+}
+// One fiber runs at a time, so an add is atomic as it stands.
+static inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  const unsigned long long old = *p;
+  *p = old + v;
+  return old;
+}
 #ifdef EMU_IEEE_MATH
 static inline float emu_sinf(float a) { return (float)sin((double)a); }
 static inline float emu_cosf(float a) { return (float)cos((double)a); }
@@ -83,6 +96,9 @@ static inline float emu_tanhf(float a) { return (float)tanh((double)a); }
 #endif
 template <class F>
 static inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+struct cudaFuncAttributes { int maxThreadsPerBlock; };
+template <class F>
+static inline cudaError_t cudaFuncGetAttributes(cudaFuncAttributes*, F) { return cudaSuccess; }
 // A CPU has no multiprocessors: occupancy is a question for the card.
 template <class F>
 static inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
@@ -390,7 +406,11 @@ def build(source: Path, tmp_path: Path, ieee_math: bool = False) -> ctypes.CDLL:
     tanhf become the
     float64 functions rounded to float32 (see :func:`ieee_math`)."""
     (tmp_path / "cuda_runtime.h").write_text(CUDA_ON_CPU)
-    text = re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(", _launch, source.read_text())
+    # A .cu that includes another .cu (a second build of the same kernels)
+    # takes its text, so that the rewriting below reaches it.
+    text = re.sub(r'^#include "(\w+\.cu)"', lambda m: (source.parent / m.group(1)).read_text(),
+                  source.read_text(), flags=re.M)
+    text = re.sub(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(", _launch, text)
     text = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                   r"\1* const \2 = static_cast<\1*>(emu_dynamic_shared());", text)
     cpp = tmp_path / f"{source.stem}.cpp"

@@ -220,7 +220,7 @@ def ieee_lib(tmp_path_factory):
     lib = cuda_on_cpu.build(CSRC / "mpc_fused_kernel.cu", tmp_path_factory.mktemp("drift_cpu"),
                             ieee_math=True)
     lib.mpc_fused_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.mpc_fused_launch.restype = ctypes.c_int
     return lib
 
@@ -256,8 +256,8 @@ def test_cuda_source_with_ieee_math_is_bit_identical_to_plain_version(ieee_lib, 
     viol = torch.full((B,), float("nan"))
     err = ieee_lib.mpc_fused_launch(
         mf.MODEL_IDS[name], *(t.contiguous().data_ptr() for t in args[:4]), U0.data_ptr(),
-        params.data_ptr(), U.data_ptr(), xs.data_ptr(), viol.data_ptr(), None, B, N, pb.K,
-        len(pb.bounded), params.numel(), cfg.outer_iters, cfg.newton_iters, None)
+        params.data_ptr(), U.data_ptr(), xs.data_ptr(), viol.data_ptr(), None, None, B,
+        N, pb.K, len(pb.bounded), params.numel(), cfg.outer_iters, cfg.newton_iters, None)
     assert err == 0
     plain = mf.solve_fused_batch_reference(name, spec, *args, DT, cfg)
     assert torch.isfinite(plain.U).all() and (plain.U != args[4]).any()

@@ -71,13 +71,13 @@ U_TOL = 5e-3  # chip_smoke.py's phase 10 envelope
 VIOL_TOL = 1e-3
 
 
-def _build(tmp_path_factory, ieee_math):
+def _build(tmp_path_factory, ieee_math, source="mpc_fused_kernel.cu"):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the CUDA source for the CPU")
-    lib = cuda_on_cpu.build(CSRC / "mpc_fused_kernel.cu", tmp_path_factory.mktemp("fused_cpu"),
+    lib = cuda_on_cpu.build(CSRC / source, tmp_path_factory.mktemp("fused_cpu"),
                             ieee_math=ieee_math)
     lib.mpc_fused_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.mpc_fused_launch.restype = ctypes.c_int
     for fn in (lib.mpc_fused_shared_bytes, lib.mpc_fused_workspace_floats):
         fn.argtypes = [ctypes.c_int] * 5
@@ -92,15 +92,23 @@ def cpu_lib(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def clock_lib(tmp_path_factory):
+    """``csrc/mpc_fused_clock.cu``, the instantiations with the phase clock,
+    built for the CPU under the block emulation."""
+    return _build(tmp_path_factory, ieee_math=False, source="mpc_fused_clock.cu")
+
+
+@pytest.fixture(scope="module")
 def ieee_lib(tmp_path_factory):
     """The same source built with ``cuda_on_cpu``'s IEEE math."""
     return _build(tmp_path_factory, ieee_math=True)
 
 
-def launch(lib, model_name, spec, args, cfg):
+def launch(lib, model_name, spec, args, cfg, clock=None):
     """One launch of the CPU build as ``solve_fused_batch`` makes it on a
     card, the workspace of a wide layout filled with NaN bytes as the
-    emulation fills shared memory; (U (B, N, m), xs (B, N+1, n), viol (B,))."""
+    emulation fills shared memory; (U (B, N, m), xs (B, N+1, n), viol (B,)).
+    ``clock``: the phase clock's totals (a tensor), or none."""
     pb = mf._problem(model_name, spec, cfg)
     B, M = args[0].shape[0], pb.N * pb.m
     params = torch.tensor(mf.kernel_params(model_name, spec, entry.DT, cfg), dtype=torch.float32)
@@ -113,8 +121,9 @@ def launch(lib, model_name, spec, args, cfg):
     err = lib.mpc_fused_launch(
         mf.MODEL_IDS[model_name], *(t.contiguous().data_ptr() for t in args[:4]),
         U0.data_ptr(), params.data_ptr(), U.data_ptr(), xs.data_ptr(), viol.data_ptr(),
-        ws.data_ptr() if ws_floats else None, B, pb.N, pb.K, len(pb.bounded), params.numel(),
-        cfg.outer_iters, cfg.newton_iters, None)
+        ws.data_ptr() if ws_floats else None,
+        None if clock is None else clock.data_ptr(), B, pb.N, pb.K, len(pb.bounded),
+        params.numel(), cfg.outer_iters, cfg.newton_iters, None)
     assert err == 0
     return U.reshape(B, pb.N, pb.m), xs.reshape(B, pb.N + 1, pb.n), viol
 
@@ -285,8 +294,8 @@ def test_launch_refuses_a_missing_workspace_and_a_width_past_a_block(cpu_lib):
         err = cpu_lib.mpc_fused_launch(
             mf.MODEL_IDS[QUAD_3D], *(t.contiguous().data_ptr() for t in args[:4]),
             args[4].contiguous().data_ptr(), params.data_ptr(), U.data_ptr(), U.data_ptr(),
-            U.data_ptr(), None if N == 30 else ws.data_ptr(), 1, N, pb.K, len(pb.bounded),
-            params.numel(), cfg.outer_iters, cfg.newton_iters, None)
+            U.data_ptr(), None if N == 30 else ws.data_ptr(), None, 1, N, pb.K,
+            len(pb.bounded), params.numel(), cfg.outer_iters, cfg.newton_iters, None)
         assert err == 1
         assert torch.isnan(U).all()
 
@@ -360,3 +369,91 @@ def test_cuda_source_on_bicycle_edge_cases_is_bit_identical(ieee_lib, monkeypatc
     assert _same(U, plain.U) and _same(xs, plain.xs) and _same(viol, plain.viol)
     nan_rows = torch.isnan(plain.U).flatten(1).any(1).tolist()
     assert nan_rows == [False, model_name != "KinematicBicycle2D", False]
+
+
+class ActiveRows(torch.overrides.TorchFunctionMode):
+    """Per problem, the constraint rows that enter H in the plain version's
+    Newton steps: the true entries of its tests ``act0 > 0.0`` on the
+    (B, NC) activations, summed over the steps."""
+
+    def __init__(self, nc):
+        super().__init__()
+        self.nc, self.rows = nc, 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (func in (torch.Tensor.gt, torch.Tensor.__gt__) and len(args) == 2
+                and isinstance(args[1], float) and args[1] == 0.0 and args[0].ndim == 2
+                and args[0].shape[-1] == self.nc):
+            self.rows = self.rows + out.sum(-1)
+        return out
+
+
+@pytest.mark.parametrize("model_name,N", [
+    (DOUBLE_INTEGRATOR_2D, 10),  # the shared layout
+    (QUAD_3D, 30),  # Jr and Jc in the workspace
+])
+def test_phase_clock_keeps_the_bits_and_counts_each_block(cpu_lib, clock_lib, monkeypatch,
+                                                          model_name, N):
+    """DoubleIntegrator2D near two circles at the full 8x3 budget (N=10,
+    B=3) and Quad3D at the RTI budget past a block's shared memory (N=30,
+    B=2), launched with the clock's library and with the plain one: the same
+    bits as the plain version each time.  Only the clock's library writes the
+    totals: one slot a problem, whose ten phase totals add up to the block's
+    cycles exactly, each Newton-step phase entered outer x newton times, and
+    whose active rows are those the plain version forms (155 on the second
+    double integrator, 48 and 30 on the quadrotors)."""
+    monkeypatch.setattr(torch, "sqrt", cuda_on_cpu.ieee_sqrt)
+    spec = make_spec(model_name)
+    if model_name == DOUBLE_INTEGRATOR_2D:
+        B, cfg = 3, mpc_cbf.MPCConfig(horizon=N, num_obs=5)
+        args = integrator_problems(model_name, N, B, CIRCLES)
+    else:
+        B, cfg = 2, mpc_cbf.MPCConfig.rti(horizon=N, num_obs=5)
+        args = entry.build_fused_step(B, horizon=N, device="cpu")[1]
+    k = len(mf.PHASES)
+    fields, slots = clock_lib.mpc_fused_trace_fields(), clock_lib.mpc_fused_trace_slots()
+    assert fields == 2 * k + 2 and slots >= 4096
+    totals = torch.zeros((slots, fields), dtype=torch.int64)
+    on = launch(clock_lib, model_name, spec, args, cfg, totals)
+    after_on = totals.clone()
+    off = launch(cpu_lib, model_name, spec, args, cfg)
+    assert torch.equal(totals, after_on)
+    pb = mf._problem(model_name, spec, cfg)
+    with ActiveRows(pb.N * pb.K + 2 * pb.N * len(pb.bounded)) as rows:
+        plain = mf.solve_fused_batch_reference(model_name, spec, *args, entry.DT, cfg)
+    assert (plain.U != args[4]).any()
+    for outs in (off, on):
+        for got, want in zip(outs, (plain.U, plain.xs, plain.viol)):
+            assert torch.equal(got, want)
+    assert not totals[B:].any()
+    t = totals[:B]
+    cycles, entries, total = t[:, :k], t[:, k:2 * k], t[:, 2 * k + 1]
+    assert (cycles >= 0).all() and (total > 0).all()
+    assert torch.equal(cycles.sum(1), total)
+    steps = cfg.outer_iters * cfg.newton_iters
+    for i, phase in enumerate(mf.PHASES):
+        want = {"prologue": 1, "multipliers": cfg.outer_iters, "epilogue": 1}.get(phase, steps)
+        assert (entries[:, i] == want).all(), phase
+    assert rows.rows.sum() > 0
+    assert torch.equal(t[:, 2 * k], rows.rows)
+
+
+def test_each_library_refuses_the_others_clock_argument(cpu_lib, clock_lib):
+    """The plain library takes no clock buffer and the clock's library needs
+    one: either launch fails with cudaErrorInvalidValue and writes nothing."""
+    spec, cfg = make_spec(QUAD_3D), mpc_cbf.MPCConfig(horizon=10, num_obs=5)
+    args = entry.build_fused_step(1, horizon=10, device="cpu")[1]
+    pb = mf._problem(QUAD_3D, spec, cfg)
+    params = torch.tensor(mf.kernel_params(QUAD_3D, spec, entry.DT, cfg))
+    totals = torch.zeros((clock_lib.mpc_fused_trace_slots(), clock_lib.mpc_fused_trace_fields()),
+                         dtype=torch.int64)
+    for lib, trace in ((cpu_lib, totals.data_ptr()), (clock_lib, None)):
+        U = torch.full((1, 10 * pb.m), float("nan"))
+        err = lib.mpc_fused_launch(
+            mf.MODEL_IDS[QUAD_3D], *(t.contiguous().data_ptr() for t in args[:4]),
+            args[4].contiguous().data_ptr(), params.data_ptr(), U.data_ptr(), U.data_ptr(),
+            U.data_ptr(), None, trace, 1, 10, pb.K, len(pb.bounded), params.numel(),
+            cfg.outer_iters, cfg.newton_iters, None)
+        assert err == 1
+        assert torch.isnan(U).all() and not totals.any()

@@ -13,10 +13,11 @@ profiling hooks and the helpers.
 - the same at world size 1 in this process, and ``sharded_batch_apply`` /
   ``psum_scenario``, bit for bit;
 - ``scenario_mesh`` raises without a process group;
-- ``KernelTimer``, ``trace_to`` and ``annotate`` on the CPU;
+- ``trace_to`` and ``span`` on the CPU;
 - ``utils.helpers`` against the JAX package's.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -203,22 +204,27 @@ def test_scenario_mesh_needs_a_process_group():
 
 
 def test_kernel_timer_trace_and_annotate_on_cpu(tmp_path):
-    t = profiling.KernelTimer()
-    for _ in range(3):
-        with t.time("matmul") as h:
-            h["out"] = torch.ones((64, 64)) @ torch.ones((64, 64))
-    with t.time("sum", sync_value=(torch.ones(3), None)):
-        torch.ones(3).sum()
-    assert len(t.samples["matmul"]) == 3 and t.mean("matmul") > 0.0
-    rep = t.report()
-    assert "matmul" in rep and "n=    3" in rep and "sum" in rep
-    with profiling.trace_to(str(tmp_path / "trace")) as prof:
-        with profiling.annotate("fleet_chunk"):
-            torch.ones((32, 32)).exp().sum()
+    """``trace_to`` and ``span``, which replaced ``KernelTimer`` and
+    ``annotate``: the span in the profile and in the Chrome trace as a
+    host-only event, the session's record, and the metadata (no B3 phase
+    clock without a card; the counters' rise over the session)."""
+    from safe_control_tpu_torch.solvers import mpc_cbf, mpc_fused
+
+    for _ in range(2):  # each session starts with an empty record
+        with profiling.trace_to(str(tmp_path / "trace")) as prof:
+            with profiling.span("fleet_chunk"):
+                torch.ones((32, 32)).exp().sum()
+        assert [s.name for s in profiling.spans()] == ["fleet_chunk"]
     names = {e.key for e in prof.key_averages()}
     assert "fleet_chunk" in names
-    text = (tmp_path / "trace" / "trace.json").read_text()
-    assert "fleet_chunk" in text
+    data = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert {e.get("cat") for e in data["traceEvents"] if e.get("name") == "fleet_chunk"} == {
+        "cpu_op"}
+    assert data["b3_phases"] is None
+    counters = data["port_counters"]
+    assert counters[f"{mpc_fused.__name__}.DISPATCH_COUNT"] == 0
+    assert counters[f"{mpc_fused.__name__}.LAUNCH_COUNT"] == 0
+    assert counters[f"{mpc_cbf.__name__}._FUSED_FALLBACK_SEEN"] == 0
 
 
 def test_helpers_match_jax():
