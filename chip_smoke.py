@@ -46,10 +46,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    alone) and its plain version, and CBF-QP steps/s through the kernel and
    through the general path; the kernel's operation count, bound and share
    reached.
-9. Reports the generic fused MPC kernel's build: seconds, threads a block,
-   and registers, stack, spills, dynamic shared memory and blocks an SM (the
-   CUDA occupancy calculator) per model instantiation; every model has two,
-   the shared-memory layout and the wide one (phase 28b).
+9. Reports the generic fused MPC kernel's build: seconds, and per model the
+   instantiation its configuration launches, with its threads a block (one
+   warp at M <= 32, else 128), registers, stack, spills, dynamic shared
+   memory and blocks an SM (the CUDA occupancy calculator); every model has
+   three, the shared-memory layout in one warp and in 128 threads and the
+   wide one (phase 28b).
 10. Holds the fused kernel against its plain version (max |du| < 5e-3,
     max |dxs| < 5e-3, viol atol 1e-3, the JAX package's kernel-class
     envelope): (a) Quad3D N=10 at B=4096, cold start and the warm start one
@@ -338,25 +340,37 @@ def ptxas_summary(report: str, keep=None) -> str:
     return " | ".join(out)
 
 
+def fused_instantiation(mangled: str) -> tuple:
+    """``(model, wide, threads, clocked)`` of an instantiation of the fused
+    kernel from its mangled name: the model is its first template argument,
+    ``wide`` its second (the layout with a global workspace; False for a
+    build without it), ``threads`` its third (a block's threads; 128 for a
+    build without it) and ``clocked`` whether its pack holds the phase
+    clock's buffer; ``("?", False, 128, False)`` for another name."""
+    found = re.search(r"IN9mpc_fused(\d+)", mangled)
+    if not found:
+        return "?", False, 128, False
+    end = found.end() + int(found.group(1))
+    args = re.match(r"ELb([01])E(?:Li(\d+)E)?(?:J(Py)?E)?", mangled[end:])
+    if args is None:
+        return mangled[found.end():end], False, 128, False
+    return (mangled[found.end():end], args.group(1) == "1", int(args.group(2) or 128),
+            args.group(3) is not None)
+
+
 def fused_ptxas(report: str, clock: bool = False) -> list:
-    """``(model, wide, registers, stack and spills)`` of each instantiation
-    of the fused kernel without its phase clock (with ``clock``, of each
-    with it): the model is the mangled template argument, ``wide`` its
-    second one (the layout with a global workspace; False for a build
-    without it) and the clock its pack (the buffer's pointer, or empty)."""
-    out, model, wide, clocked, frame = [], "", False, False, ""
+    """``(model, wide, threads, registers, stack and spills)`` of each
+    instantiation of the fused kernel without its phase clock (with
+    ``clock``, of each with it), from nvcc's ``-Xptxas -v`` report
+    (``fused_instantiation``)."""
+    out, kind, frame = [], ("?", False, 128, False), ""
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
-            found = re.search(r"IN9mpc_fused(\d+)", ln)
-            model = ln[found.end():found.end() + int(found.group(1))] if found else "?"
-            args = re.match(r"ELb([01])E(?:J(Py)?E)?",
-                            ln[found.end() + int(found.group(1)):]) if found else None
-            wide = args is not None and args.group(1) == "1"
-            clocked = args is not None and args.group(2) is not None
+            kind = fused_instantiation(ln)
         elif "bytes stack frame" in ln:
             frame = ln.strip()
-        elif "Used" in ln and "registers" in ln and clocked == clock:
-            out.append((model, wide, ln.split("Used")[1].split(",")[0].strip(), frame))
+        elif "Used" in ln and "registers" in ln and kind[3] == clock:
+            out.append((*kind[:3], ln.split("Used")[1].split(",")[0].strip(), frame))
     return out
 
 
@@ -768,6 +782,39 @@ class UnitWeights:
     def __exit__(self, *exc):
         for name in self.UNIT:
             del self.weights[name]
+
+
+def b3_build_report(ptxas: str, shapes: dict) -> tuple:
+    """Phase 9: per model, the fused kernel's instantiation that its
+    configuration in ``shapes`` (model -> (spec, MPCConfig)) launches, as a
+    line: threads a block, registers, stack and spills, dynamic shared
+    memory, blocks an SM; and per model the wide instantiation's (registers,
+    stack and spills).  Exits unless every model has its three: the shared
+    layout in one warp and in 128 threads, and the wide one."""
+    from safe_control_tpu_torch import entry
+    from safe_control_tpu_torch.solvers import mpc_fused as mf
+
+    report, wide_ptxas, kinds = {}, {}, {}
+    with UnitWeights():  # to size Manipulator2D's parameter block
+        for model, wide, threads, regs, frame in fused_ptxas(ptxas):
+            kinds.setdefault(model, set()).add((wide, threads))
+            sp, cf = shapes[model]
+            if wide:
+                wide_ptxas[model] = (regs, frame)
+                continue
+            if threads != mf.block_threads(model, sp, entry.DT, cf):
+                continue  # not the instantiation this configuration launches
+            smem = mf.shared_memory_bytes(model, sp, entry.DT, cf)
+            per_sm = mf.blocks_per_sm(model, sp, entry.DT, cf)
+            report[model] = (f"{model} N={cf.horizon}: {threads}-thread blocks, {regs}, "
+                             f"{frame}, {smem} bytes dynamic shared, {per_sm} blocks an SM")
+    three = {(False, mf.WARP), (False, mf.MAX_DECISION), (True, mf.MAX_DECISION)}
+    if (set(report) != set(mf.MODEL_IDS) or set(wide_ptxas) != set(mf.MODEL_IDS)
+            or any(kinds[model] != three for model in mf.MODEL_IDS)):
+        raise SystemExit("phase 9 failed: not every model has its three fused kernel "
+                         "instantiations (shared memory in one warp and in 128 threads, and "
+                         "the wide layout's workspace)")
+    return report, wide_ptxas
 
 
 def b3_pair(label, model, sp, args, cf, errs, active=None, bits=None, plain_ms=None):
@@ -2834,25 +2881,11 @@ def main() -> None:
               DOUBLE_INTEGRATOR_2D: (make_spec(DOUBLE_INTEGRATOR_2D), int_cfg)}
     shapes.update({model: (make_spec(model), int_cfg) for model in NEW_B3_OPS})
     shapes.update({model: (make_spec(model), int_cfg) for model in DRIFT_B3_OPS})
-    b3_report, b3_wide = {}, {}
-    with UnitWeights():  # to size Manipulator2D's parameter block
-        for model, wide, regs, frame in fused_ptxas(info["ptxas"]):
-            if wide:
-                b3_wide[model] = (regs, frame)
-                continue
-            sp, cf = shapes[model]
-            smem = mf.shared_memory_bytes(model, sp, entry.DT, cf)
-            per_sm = mf.blocks_per_sm(model, sp, entry.DT, cf)
-            b3_report[model] = (f"{model} N={cf.horizon}: {regs}, {frame}, {smem} bytes dynamic "
-                                f"shared, {per_sm} blocks an SM")
-    threads = _build.load_mpc_fused_kernel().mpc_fused_threads()
+    b3_report, b3_wide = b3_build_report(info["ptxas"], shapes)
     print(f"phase 9 build: mpc_fused_kernel {info['seconds']:.1f} s (cached={info['cached']}, "
-          f"built beside the other two and phases 2-8), {threads}-thread blocks; "
+          f"built beside the other two and phases 2-8); "
           + " | ".join(v for k, v in b3_report.items()
                        if k not in NEW_B3_OPS and k not in DRIFT_B3_OPS))
-    if set(b3_report) != set(mf.MODEL_IDS) or set(b3_wide) != set(mf.MODEL_IDS):
-        raise SystemExit("phase 9 failed: not every model has its two fused kernel "
-                         "instantiations (shared memory, and the wide layout's workspace)")
 
     # ---- phase 10: fused kernel vs its plain version -------------------------------
     fused_errs = []

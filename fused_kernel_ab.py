@@ -12,9 +12,13 @@ this one with another launch shape or a part of the Newton step changed.
 
 The script builds the package's kernel (``csrc/mpc_fused_kernel.cu``) and
 the other one with the same nvcc flags, both at once, and prints each
-build's ptxas report per model, its
-threads a block, shared bytes and blocks an SM (the CUDA occupancy
-calculator) at Quad3D N=10 and VTOL2D N=16.  On the problems of
+build's ptxas report per instantiation, and its threads a block, shared
+bytes and blocks an SM (the CUDA occupancy calculator) at Quad3D N=10,
+VTOL2D N=16 and each model of M <= 32 at N=10 (this build runs those in
+one warp).  It compares the two builds' SASS (``cuobjdump -sass``) of each
+instantiation that both have, by model, layout and threads a block (a build
+without the threads argument has 128), and prints which differ.  On the
+problems of
 ``chip_smoke.py``'s phase 10 (Quad3D N=10 at B=4096, cold start;
 DynamicUnicycle2D N=8 at B=4096; VTOL2D N=16 at B=256; SingleIntegrator2D
 and DoubleIntegrator2D N=10 at B=64) it reports whether each build gives the
@@ -33,7 +37,15 @@ to its plain version and timed there alone.  At the benchmark cells' shape
 phase clock on (``csrc/mpc_fused_clock.cu``, built beside it): the same
 bits, the totals tiling each block's cycles, the phases' shares, and the
 times of the three in turns (other, this, this with the clock, the clock,
-this, other; three rounds).  Exits non-zero when
+this, other; three rounds); and the two builds in turns at B = 17, 132,
+264, 660, 1320 and 1848 (waves of 128-thread and of one-warp blocks).  The
+other models of M <= 32 at N=10
+(Unicycle2D, KinematicBicycle2D and its C3BF and DPCBF variants, Quad2D,
+and with unit cost weights Manipulator2D, DynamicBicycle2D and
+DriftingCar), on ``entry.build_fused_step``'s starts: whether the two
+builds give the same bits at B=1, 17 and 4096, this build against its plain
+version on the first 64 (envelope gated), and both timed in turns at B=1
+and B=4096.  Exits non-zero when
 a check fails or there is no card.
 """
 
@@ -53,6 +65,10 @@ VIOL_TOL = 1e-3
 N_PLAIN = 64  # problems of each set held to the plain version
 TIMED = [("Quad3D", 1, 20), ("Quad3D", 396, 10), ("Quad3D", 4096, 5), ("Quad3D", 16384, 2),
          ("VTOL2D", 256, 10)]
+# The models of M <= 32 at N=10 besides DynamicUnicycle2D and the integrators.
+NARROW_MODELS = ("Unicycle2D", "KinematicBicycle2D", "KinematicBicycle2D_C3BF",
+                 "KinematicBicycle2D_DPCBF", "Quad2D", "Manipulator2D", "DynamicBicycle2D",
+                 "DriftingCar")
 
 # Blocks an SM of a build without ``mpc_fused_blocks_per_sm``: appended to a
 # copy of its source, where its kernel template is in scope.
@@ -98,8 +114,31 @@ def build_all(jobs):
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed on {name}:\n{stdout}\n{stderr}")
-        built[name] = (ctypes.CDLL(str(lib)), stdout + stderr)
+        cdll = ctypes.CDLL(str(lib))
+        cdll.path = lib
+        built[name] = (cdll, stdout + stderr)
     return built
+
+
+def sass(lib_path) -> dict:
+    """``chip_smoke.fused_instantiation`` of each fused kernel in the
+    library -> its SASS lines (``cuobjdump -sass``, beside nvcc)."""
+    from chip_smoke import fused_instantiation
+    from safe_control_tpu_torch import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, key = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            key = fused_instantiation(name) if "mpc_fused_kernel" in name else None
+            if key is not None:
+                funcs[key] = []
+        elif key is not None and ln.strip().startswith("/*"):
+            funcs[key].append(ln.strip())
+    return funcs
 
 
 def main() -> None:
@@ -109,7 +148,7 @@ def main() -> None:
         raise SystemExit(__doc__)
     import numpy as np
 
-    from chip_smoke import card_line, fused_ptxas, sync_time
+    from chip_smoke import UnitWeights, card_line, fused_ptxas, sync_time
     from safe_control_tpu_torch import _build, entry
     from safe_control_tpu_torch.core.spec import (
         DOUBLE_INTEGRATOR_2D,
@@ -164,33 +203,52 @@ def main() -> None:
             SINGLE_INTEGRATOR_2D: mpc_cbf.MPCConfig(horizon=10, num_obs=5),
             DOUBLE_INTEGRATOR_2D: mpc_cbf.MPCConfig(horizon=10, num_obs=5)}
 
-    def threads_of(lib, model):
+    specs.update({model: make_spec(model) for model in NARROW_MODELS})
+    narrow_cfg = mpc_cbf.MPCConfig(horizon=10, num_obs=5)
+    reported = [(QUAD_3D, cfgs[QUAD_3D]), (VTOL_2D, cfgs[VTOL_2D]),
+                (DYNAMIC_UNICYCLE_2D, narrow_cfg)] + [(m, narrow_cfg) for m in NARROW_MODELS]
+
+    def threads_of(lib, model, cf):
+        if hasattr(lib, "mpc_fused_block_threads"):
+            lib.mpc_fused_block_threads.argtypes = [ctypes.c_int] * 5
+            return lib.mpc_fused_block_threads(*mf._shape_args(model, specs[model], entry.DT, cf))
         if hasattr(lib, "mpc_fused_threads"):
             return lib.mpc_fused_threads()
-        M = cfgs[model].horizon * mf._problem(model, specs[model], cfgs[model]).m
+        M = cf.horizon * mf._problem(model, specs[model], cf).m
         return 32 * ((M + 31) // 32)  # the first port's launch: 32 * ceil(M / 32)
 
-    for name, (lib, report) in built.items():
-        regs = "; ".join(f"{mdl}{' (wide)' if wide else ''}: {r}, {frame}"
-                         for mdl, wide, r, frame in fused_ptxas(report))
-        occ = []
-        for model in (QUAD_3D, VTOL_2D):
-            shape = mf._shape_args(model, specs[model], entry.DT, cfgs[model])
-            smem = lib.mpc_fused_shared_bytes(*shape)
-            threads = threads_of(lib, model)
-            if hasattr(lib, "mpc_fused_blocks_per_sm"):
-                lib.mpc_fused_blocks_per_sm.argtypes = [ctypes.c_int] * 5
-                per_sm = lib.mpc_fused_blocks_per_sm(*shape)
-            else:
-                lib.ab_blocks_per_sm.argtypes = [ctypes.c_int] * 3
-                per_sm = lib.ab_blocks_per_sm(shape[0], threads, smem)
-            occ.append(f"{model} N={cfgs[model].horizon}: {threads} threads, {smem} bytes "
-                       f"shared, {per_sm} blocks an SM")
-        print(f"build {name} ({jobs[name]}): " + "; ".join(occ)
-              + f"; ptxas: {regs}")
-    print(f"build clock ({jobs['clock']}): ptxas: " + "; ".join(
-        f"{mdl}{' (wide)' if wide else ''}: {r}, {frame}"
-        for mdl, wide, r, frame in fused_ptxas(clock_report, clock=True)))
+    def ptxas_line(report, clock=False):
+        return "; ".join(f"{mdl}{' (wide)' if wide else ''} {threads} threads: {r}, {frame}"
+                         for mdl, wide, threads, r, frame in fused_ptxas(report, clock=clock))
+
+    with UnitWeights():  # to size Manipulator2D's and the drift models' parameter blocks
+        for name, (lib, report) in built.items():
+            occ = []
+            for model, cf in reported:
+                shape = mf._shape_args(model, specs[model], entry.DT, cf)
+                smem = lib.mpc_fused_shared_bytes(*shape)
+                threads = threads_of(lib, model, cf)
+                if hasattr(lib, "mpc_fused_blocks_per_sm"):
+                    lib.mpc_fused_blocks_per_sm.argtypes = [ctypes.c_int] * 5
+                    per_sm = lib.mpc_fused_blocks_per_sm(*shape)
+                else:
+                    lib.ab_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+                    per_sm = lib.ab_blocks_per_sm(shape[0], threads, smem)
+                occ.append(f"{model} N={cf.horizon}: {threads} threads, {smem} bytes "
+                           f"shared, {per_sm} blocks an SM")
+            print(f"build {name} ({jobs[name]}): " + "; ".join(occ)
+                  + f"; ptxas: {ptxas_line(report)}")
+    print(f"build clock ({jobs['clock']}): ptxas: {ptxas_line(clock_report, clock=True)}")
+    this_sass, other_sass = sass(built["this"][0].path), sass(built["other"][0].path)
+    both = sorted(set(this_sass) & set(other_sass))
+    differ = [k for k in both if this_sass[k] != other_sass[k]]
+    print(f"SASS, this against other: {len(both) - len(differ)} of {len(both)} instantiations "
+          f"both builds have are identical; differ: "
+          + (", ".join(f"{mdl}{' (wide)' if wide else ''} {threads} threads"
+                       for mdl, wide, threads, _ in differ) or "none")
+          + "; only this: " + (", ".join(f"{mdl}{' (wide)' if wide else ''} {threads} threads"
+                                         for mdl, wide, threads, _ in
+                                         sorted(set(this_sass) - set(other_sass))) or "none"))
 
     # ---- problems ---------------------------------------------------------------
     rng = np.random.default_rng(11)
@@ -315,6 +373,59 @@ def main() -> None:
         order = ("other", "this", "clock", "clock", "this", "other") * 3
         ms = [(name, sync_time(runs[name], reps)) for name in order]
         print(f"[{card}] DU N=10 B={B}: " + ", ".join(f"{name} {t_:.4f} ms" for name, t_ in ms))
+    # between them, other against this where a wave of either block width ends
+    big = entry.build_fused_step(4096, model_name=DYNAMIC_UNICYCLE_2D, horizon=10, device=dev)[1]
+    for B in (17, 132, 264, 660, 1320, 1848):
+        args = tuple(t[:B].contiguous() for t in big)
+        runs = {name: launcher(lib_, DYNAMIC_UNICYCLE_2D, args, du10)
+                for name, (lib_, _) in built.items()}
+        for run in runs.values():
+            run()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(runs["this"].outs, runs["other"].outs))
+        ms = [(name, sync_time(runs[name], 10)) for name in ("other", "this", "this", "other")]
+        print(f"[{card}] DU N=10 B={B}: this vs other bit-identical {same}; "
+              + ", ".join(f"{name} {t_:.4f} ms" for name, t_ in ms))
+
+    # ---- the other models of M <= 32 at N=10 (one warp in this build): the two builds'
+    # bits at B=1, 17 and 4096, this against its plain version on the first 64, and
+    # times in turns at B=1 and 4096 ------------------------------------------------------
+    def same_bits(outs_a, outs_b):
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(outs_a, outs_b))
+
+    with UnitWeights():
+        for model in NARROW_MODELS:
+            big = entry.build_fused_step(4096, model_name=model, horizon=10, device=dev)[1]
+            for B, reps in ((1, 20), (17, 0), (4096, 5)):
+                args = tuple(t[:B].contiguous() for t in big)
+                runs = {name: launcher(lib, model, args, narrow_cfg)
+                        for name, (lib, _) in built.items()}
+                for run in runs.values():
+                    run()
+                torch.cuda.synchronize()
+                this = runs["this"].outs
+                line = (f"{model} N=10 B={B}: this vs other bit-identical "
+                        f"{same_bits(this, runs['other'].outs)}")
+                if B == 4096:
+                    k = N_PLAIN
+                    plain = mf.solve_fused_batch_reference(model, specs[model],
+                                                           *(t[:k] for t in args), entry.DT,
+                                                           narrow_cfg)
+                    du = (this[0][:k] - plain.U.reshape(k, -1)).abs().max().item()
+                    dxs = (this[1][:k] - plain.xs.reshape(k, -1)).abs().max().item()
+                    dv = (this[2][:k] - plain.viol).abs().max().item()
+                    want = (plain.U.reshape(k, -1), plain.xs.reshape(k, -1), plain.viol)
+                    line += (f"; this vs plain (first {k}) max|du| {du:.3e}, max|dxs| "
+                             f"{dxs:.3e}, max|dviol| {dv:.3e}, bit-identical "
+                             f"{same_bits([t[:k] for t in this], want)}")
+                    failed |= not (du < U_TOL and dxs < U_TOL and dv <= VIOL_TOL)
+                print(line)
+                if reps:
+                    ms = [(name, sync_time(runs[name], reps))
+                          for name in ("other", "this", "this", "other")]
+                    print(f"[{card}] {model} N=10 B={B}: "
+                          + ", ".join(f"{name} {t:.4f} ms" for name, t in ms))
 
     # ---- the wide layouts, the RTI budget, B=64: VTOL2D N=30 (Jc in the workspace),
     # Quad3D N=30 and DynamicUnicycle2D N=64 (M=128; Jr and Jc both there) -----------

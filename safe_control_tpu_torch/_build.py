@@ -151,7 +151,7 @@ def load_mpc_fused_kernel(clock: bool = False) -> ctypes.CDLL:
             )
             lib.mpc_fused_launch.restype = ctypes.c_int
             for fn in (lib.mpc_fused_shared_bytes, lib.mpc_fused_blocks_per_sm,
-                       lib.mpc_fused_workspace_floats):
+                       lib.mpc_fused_workspace_floats, lib.mpc_fused_block_threads):
                 fn.argtypes = [ctypes.c_int] * 5
                 fn.restype = ctypes.c_int
             for fn in (lib.mpc_fused_threads, lib.mpc_fused_trace_fields,

@@ -8,11 +8,12 @@ static tensors and replays.  The outputs are the graph's static tensors,
 overwritten by the next call.  Without ``use_graph`` the function runs
 eagerly.  The inputs are tensors and tuples of them, of fixed shapes.
 
-A kernel wrapper counts its launches in its module's ``LAUNCH_COUNT`` when
-its Python code runs, which a replay skips.  Each wrapper's module registers
-itself with :func:`count_launches` when it is imported; the capture notes how
-far each registered count rose while it recorded (no launch: the kernel is
-only recorded), takes that back, and every replay adds it, as the replay
+A kernel wrapper counts its launches in its module's ``LAUNCH_COUNT`` (and
+may count some of them again in other counters) when its Python code runs,
+which a replay skips.  Each wrapper's module registers itself and its
+counters with :func:`count_launches` when it is imported; the capture notes
+how far each registered count rose while it recorded (no launch: the kernel
+is only recorded), takes that back, and every replay adds it, as the replay
 launches the recorded kernels.  The warm-up's launches are real and stay
 counted (``warmup_launches``).
 
@@ -38,25 +39,48 @@ _tree = torch.utils._pytree
 
 # name -> module of each kernel wrapper that counts its launches in a LAUNCH_COUNT
 COUNTED: dict = {}
+# name -> the module's counters of launches: LAUNCH_COUNT and any others
+COUNTERS: dict = {}
 # names of those whose kernel has a clocked instantiation
 CLOCKED: set = set()
 # The captured steps, for the tracing switch.
 _STEPS = weakref.WeakSet()
 
 
-def count_launches(module_name: str, clocked: bool = False) -> None:
+def count_launches(module_name: str, clocked: bool = False, also: tuple = ()) -> None:
     """Register a kernel wrapper's module (call it from the module, with
     ``__name__``): captures and replays keep its ``LAUNCH_COUNT`` true, and
-    ``profiling.trace_to`` reports it.  ``clocked``: its launches run
+    the module's counters named in ``also`` (launches of some kind), and
+    ``profiling.trace_to`` reports each.  ``clocked``: its launches run
     another instantiation while tracing is on."""
     module = COUNTED[module_name] = sys.modules[module_name]
+    COUNTERS[module_name] = ("LAUNCH_COUNT", *also)
     if clocked:
         CLOCKED.add(module_name)
-    profiling.counter(f"{module_name}.LAUNCH_COUNT", lambda: module.LAUNCH_COUNT)
+    for attr in COUNTERS[module_name]:
+        profiling.counter(f"{module_name}.{attr}", lambda attr=attr: getattr(module, attr))
 
 
-def _launch_counts() -> dict:
-    return {name: module.LAUNCH_COUNT for name, module in COUNTED.items()}
+def _counts() -> dict:
+    """(module name, counter) -> its count, over every registered counter."""
+    return {(name, attr): getattr(module, attr) for name, module in COUNTED.items()
+            for attr in COUNTERS[name]}
+
+
+def _rise(before: dict, after: dict) -> dict:
+    return {key: after[key] - before.get(key, 0) for key in after
+            if after[key] != before.get(key, 0)}
+
+
+def _launches(rise: dict) -> dict:
+    """Of the counters' rise, each module's launches."""
+    return {name: n for (name, attr), n in rise.items() if attr == "LAUNCH_COUNT"}
+
+
+def _add(rise: dict, sign: int) -> None:
+    for (name, attr), n in rise.items():
+        module = COUNTED[name]
+        setattr(module, attr, getattr(module, attr) + sign * n)
 
 
 class CapturedStep:
@@ -77,7 +101,7 @@ class CapturedStep:
         self.static_out = None
         self.capture_seconds = None
         self.launches = {}
-        self.graphs = {}  # tracing on -> (graph, outputs, launches a replay)
+        self.graphs = {}  # tracing on -> (graph, outputs, counters' rise a replay)
         self.clocked = False
         self.warmup_launches = {}  # kernel module -> launches of the warm-up run
         self.warmup_out = None
@@ -94,10 +118,9 @@ class CapturedStep:
                 if dst is not src:  # an output fed back unchanged is already in place
                     dst.copy_(src)
         on = self.clocked and profiling.tracing()
-        graph, out, launches = self.graphs.get(on) or self._record(on)
+        graph, out, rise = self.graphs.get(on) or self._record(on)
         graph.replay()
-        for name, n in launches.items():
-            COUNTED[name].LAUNCH_COUNT += n
+        _add(rise, 1)
         return out
 
     def _capture(self, inputs):
@@ -106,40 +129,35 @@ class CapturedStep:
         dev = _tree.tree_leaves(inputs)[0].device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        before = _launch_counts()
+        before = _counts()
         with torch.cuda.stream(side):
             self.warmup_out = self.fn(*self.static_in)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         self.warmup_seconds = time.perf_counter() - t0
-        after = _launch_counts()
-        self.warmup_launches = {name: after[name] - before.get(name, 0) for name in after
-                                if after[name] != before.get(name, 0)}
+        self.warmup_launches = _launches(_rise(before, _counts()))
         self.clocked = not CLOCKED.isdisjoint(self.warmup_launches)
-        self.graph, self.static_out, self.launches = self._record(
-            self.clocked and profiling.tracing())
+        self.graph, self.static_out, rise = self._record(self.clocked and profiling.tracing())
+        self.launches = _launches(rise)
         self.capture_seconds = time.perf_counter() - t0
 
     def _record(self, on: bool):
         """Capture ``fn`` on the static inputs with tracing ``on`` as it is
-        now: (graph, outputs, launches a replay)."""
+        now: (graph, outputs, the counters' rise a replay)."""
         dev = _tree.tree_leaves(self.static_in)[0].device
         try:  # keep the cudaGraph_t, for graph_nodes()
             graph = torch.cuda.CUDAGraph(keep_graph=True)
         except TypeError:
             graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
+        before = _counts()
         with torch.cuda.graph(graph):
             out = self.fn(*self.static_in)
-        after = _launch_counts()
-        launches = {name: after[name] - before.get(name, 0) for name in after
-                    if after[name] != before.get(name, 0)}
-        for name, n in launches.items():  # recorded, not launched
-            COUNTED[name].LAUNCH_COUNT -= n
+        rise = _rise(before, _counts())
+        _add(rise, -1)  # recorded, not launched
         if hasattr(graph, "instantiate"):
             graph.instantiate()
         torch.cuda.synchronize(dev)
-        self.graphs[on] = (graph, out, launches)
+        self.graphs[on] = (graph, out, rise)
         return self.graphs[on]
 
     def graph_nodes(self):

@@ -43,6 +43,18 @@
 // of shared memory at Quad3D N=10 (M=40) and 111,072 at VTOL2D N=16
 // (M=64), room for five and two 128-thread blocks an SM.
 //
+// The block's width follows the decision width: a problem with M <= 32 runs
+// in a block of one warp, every other in 128 threads.  No phase needs more
+// lanes than M or the six candidates, so at M <= 32 a 128-thread block idles
+// 96 or more of its threads in every phase and still holds their registers:
+// at DynamicUnicycle2D N=10 (M=20) the register file allowed five such
+// blocks an SM, where the one-warp block leaves residency to shared memory,
+// 14 blocks an SM (15,224 bytes a block).  Every loop of the solve runs to
+// M, NR, NC or the candidates by the thread index or strides by blockDim.x,
+// so each entry of H and grad is summed by one thread in the same order and
+// each row of L is owned by one thread at either width: the two give the
+// same bits.
+//
 // Wide problems: one thread a decision variable makes the 128 threads of a
 // block the width limit, M <= 128.  Where the whole layout would take more
 // than a block's 227 KB of shared memory, the scaled Jc moves to this
@@ -96,16 +108,22 @@ constexpr int COMMON = 9;  // rho0, growth, rho_max, reg, gain a, gain b, radius
 constexpr int OBSTACLE_FLOATS = 12;  // an Obstacle in shared memory
 constexpr float NOISE_EPS = (float)(4.0 * 1.1920928955078125e-07);  // 4 eps_f32
 
-// Threads a block, and so the widest decision vector (one thread a
-// variable: M <= 128), and the blocks an SM that the register allocation
-// must leave room for: five, as many as Quad3D N=10's shared memory allows,
-// hold a thread to 96 registers (Quad3D fits without spills, VTOL2D spills
-// about 100 bytes).  Of 4 or 5 blocks and 64, 96 or 128 threads, the
-// fastest at B=4096.  A wide layout leaves room for one block an SM (Jc in
-// the workspace) to three (Jr too) at M=120: three, up to 168 registers.
+// Threads a block above M = 32, and so the widest decision vector (one
+// thread a variable: M <= 128), and the blocks an SM that the register
+// allocation must leave room for: five, as many as Quad3D N=10's shared
+// memory allows, hold a thread to 96 registers (Quad3D fits without spills,
+// VTOL2D spills about 100 bytes).  Of 4 or 5 blocks and 64, 96 or 128
+// threads, the fastest at Quad3D N=10 (M=40), B=4096, where shared memory
+// already held an SM to five blocks.  A wide layout leaves room for one
+// block an SM (Jc in the workspace) to three (Jr too) at M=120: three, up
+// to 168 registers.  At M <= WARP a block is one warp (above): 16 of them
+// an SM, 128 registers a thread, more than shared memory lets in at
+// DynamicUnicycle2D N=10 (14).
 constexpr int THREADS = 128;
 constexpr int MIN_BLOCKS = 5;
 constexpr int MIN_BLOCKS_WIDE = 3;
+constexpr int WARP = 32;
+constexpr int MIN_BLOCKS_WARP = 16;
 static_assert(THREADS % 32 == 0 && THREADS >= 64, "a block is whole warps, one thread a variable");
 // The most dynamic shared memory a block may have (sm_90: 227 KB).
 constexpr int MAX_SHARED_BYTES = 232448;
@@ -635,10 +653,12 @@ __device__ void newton_step(const Layout& lo, float* sh, const Arrays& ar, const
 }
 
 // ``ws``: the workspace of a WIDE layout, ``lo.ws`` floats a problem (read
-// and written by this block only); unused otherwise.  ``trace...``: the
-// phase clock's buffer (TRACE_SLOTS x TRACE_FIELDS totals), or none.
-template <class Model, bool WIDE, class... Clock>
-__global__ void __launch_bounds__(THREADS, WIDE ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
+// and written by this block only); unused otherwise.  ``BLOCK``: the
+// launch's threads a block (with_shape).  ``trace...``: the phase clock's
+// buffer (TRACE_SLOTS x TRACE_FIELDS totals), or none.
+template <class Model, bool WIDE, int BLOCK, class... Clock>
+__global__ void __launch_bounds__(BLOCK, BLOCK == WARP ? MIN_BLOCKS_WARP
+                                                       : (WIDE ? MIN_BLOCKS_WIDE : MIN_BLOCKS))
     mpc_fused_kernel(const float* __restrict__ x0, const float* __restrict__ goal,
                      const float* __restrict__ obs, const float* __restrict__ uprev,
                      const float* __restrict__ U0, const float* __restrict__ params,
@@ -755,16 +775,34 @@ __global__ void __launch_bounds__(THREADS, WIDE ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
   }
 }
 
+// The instantiation that runs a layout, as a type: its WIDE and BLOCK.
+template <bool W, int T>
+struct Shape {
+  static constexpr bool WIDE = W;
+  static constexpr int BLOCK = T;
+};
+
+// ``f(Shape<WIDE, BLOCK>{})`` for the layout ``lo``: the wide layout (a
+// workspace) in 128 threads; a layout in shared memory in one warp at
+// M <= WARP, else in 128 threads.  The shape alone decides, so the host,
+// the CPU emulation and the card take the same instantiation.
+template <class F>
+int with_shape(const Layout& lo, F&& f) {
+  if (lo.ws > 0) return f(Shape<true, THREADS>{});
+  if (lo.M <= WARP) return f(Shape<false, WARP>{});
+  return f(Shape<false, THREADS>{});
+}
+
 // Allows the instantiation the block's dynamic shared memory in bytes and
 // the largest shared-memory carveout; a CUDA error code (> 0) if either is
 // refused.
-template <class Model, bool WIDE, class... Clock>
+template <class Model, bool WIDE, int BLOCK, class... Clock>
 int configure(size_t bytes) {
-  cudaError_t err = cudaFuncSetAttribute(mpc_fused_kernel<Model, WIDE, Clock...>,
+  cudaError_t err = cudaFuncSetAttribute(mpc_fused_kernel<Model, WIDE, BLOCK, Clock...>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(mpc_fused_kernel<Model, WIDE, Clock...>,
+    err = cudaFuncSetAttribute(mpc_fused_kernel<Model, WIDE, BLOCK, Clock...>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   }
@@ -773,26 +811,26 @@ int configure(size_t bytes) {
 
 // Blocks of the instantiation that fit on one SM at once, or minus a CUDA
 // error code.
-template <class Model, bool WIDE, class... Clock>
+template <class Model, bool WIDE, int BLOCK, class... Clock>
 int occupancy(size_t bytes, Clock...) {
-  int err = configure<Model, WIDE, Clock...>(bytes);
+  int err = configure<Model, WIDE, BLOCK, Clock...>(bytes);
   int blocks = 0;
   if (err == 0) {
     err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, mpc_fused_kernel<Model, WIDE, Clock...>, THREADS, bytes));
+        &blocks, mpc_fused_kernel<Model, WIDE, BLOCK, Clock...>, BLOCK, bytes));
   }
   return err == 0 ? blocks : -err;
 }
 
-template <class Model, bool WIDE, class... Clock>
+template <class Model, bool WIDE, int BLOCK, class... Clock>
 int launch(const Layout& lo, const void* x0, const void* goal, const void* obs,
            const void* uprev, const void* U0, const void* params, void* U_out, void* xs_out,
            void* viol, void* ws, int B, int outer, int newton, cudaStream_t stream,
            Clock... trace) {
   const size_t bytes = static_cast<size_t>(lo.total) * sizeof(float);
-  const int err = configure<Model, WIDE, Clock...>(bytes);
+  const int err = configure<Model, WIDE, BLOCK, Clock...>(bytes);
   if (err != 0) return err;
-  mpc_fused_kernel<Model, WIDE, Clock...><<<B, THREADS, bytes, stream>>>(
+  mpc_fused_kernel<Model, WIDE, BLOCK, Clock...><<<B, BLOCK, bytes, stream>>>(
       static_cast<const float*>(x0), static_cast<const float*>(goal),
       static_cast<const float*>(obs), static_cast<const float*>(uprev),
       static_cast<const float*>(U0), static_cast<const float*>(params),
@@ -859,8 +897,18 @@ extern "C" int mpc_fused_workspace_floats(int model, int N, int K, int NB, int n
   });
 }
 
-// Threads a block, for the build report.
+// The widest block's threads, and so the widest decision vector (M <= 128).
 extern "C" int mpc_fused_threads() { return THREADS; }
+
+// Threads a block of this configuration's launch: 32 at M <= 32 (a layout
+// in shared memory), else 128.
+extern "C" int mpc_fused_block_threads(int model, int N, int K, int NB, int nP) {
+  return with_model(model, [&](auto mdl) {
+    using Model = decltype(mdl);
+    return with_shape(Layout(Model::n, Model::m, N, K, NB, nP),
+                      [](auto shape) { return decltype(shape)::BLOCK; });
+  });
+}
 
 // The phase clock's buffer: 64-bit totals a slot (the cycles of each of the
 // NUM_PHASES phases, their entries, the active rows, the block's cycles),
@@ -877,8 +925,10 @@ extern "C" int mpc_fused_blocks_per_sm(int model, int N, int K, int NB, int nP) 
     const Layout lo(Model::n, Model::m, N, K, NB, nP);
     const size_t bytes = static_cast<size_t>(lo.total) * sizeof(float);
     return with_library_clock(nullptr, [&](auto... clock) {
-      return lo.ws > 0 ? occupancy<Model, true>(bytes, clock...)
-                       : occupancy<Model, false>(bytes, clock...);
+      return with_shape(lo, [&](auto shape) {
+        using S = decltype(shape);
+        return occupancy<Model, S::WIDE, S::BLOCK>(bytes, clock...);
+      });
     });
   });
 }
@@ -909,11 +959,12 @@ extern "C" int mpc_fused_launch(int model, const void* x0, const void* goal, con
     }
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     return with_library_clock(trace, [&](auto... clock) {
-      return lo.ws > 0 ? launch<Model, true>(lo, x0, goal, obs, uprev, U0, params, U_out, xs_out,
-                                             viol, workspace, B, outer, newton, st, clock...)
-                       : launch<Model, false>(lo, x0, goal, obs, uprev, U0, params, U_out,
-                                              xs_out, viol, workspace, B, outer, newton, st,
-                                              clock...);
+      return with_shape(lo, [&](auto shape) {
+        using S = decltype(shape);
+        return launch<Model, S::WIDE, S::BLOCK>(lo, x0, goal, obs, uprev, U0, params, U_out,
+                                                xs_out, viol, workspace, B, outer, newton, st,
+                                                clock...);
+      });
     });
   });
 }
@@ -928,10 +979,12 @@ extern "C" int mpc_fused_load() {
       using Model = decltype(mdl);
       return with_library_clock(nullptr, [&](auto... clock) {
         cudaFuncAttributes attr;
-        auto narrow = mpc_fused_kernel<Model, false, decltype(clock)...>;
-        auto wide = mpc_fused_kernel<Model, true, decltype(clock)...>;
+        auto narrow = mpc_fused_kernel<Model, false, THREADS, decltype(clock)...>;
+        auto wide = mpc_fused_kernel<Model, true, THREADS, decltype(clock)...>;
+        auto warp = mpc_fused_kernel<Model, false, WARP, decltype(clock)...>;
         cudaError_t e = cudaFuncGetAttributes(&attr, narrow);
         if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, wide);
+        if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, warp);
         return static_cast<int>(e);
       });
     });

@@ -8,7 +8,9 @@ registered model whose decision vector has M = N m <= 128 entries, in one
 kernel launch for the batch (``csrc/mpc_fused_kernel.cu``).  Infinite state
 bounds are clamped to +-1e6, as the JAX kernel does.  Where a problem's
 Jacobians outgrow a block's shared memory (VTOL2D N=30, M=120), the kernel
-keeps them in a global workspace that the wrapper allocates.
+keeps them in a global workspace that the wrapper allocates.  A problem of
+M <= 32 runs in a block of one warp, every other in 128 threads
+(``block_threads``; ``NARROW_LAUNCH_COUNT`` counts the one-warp launches).
 
 The CUDA kernel takes the Jacobian columns by forward-mode dual numbers, one
 thread per decision variable: thread d rolls the model out on (value,
@@ -68,13 +70,17 @@ _BICYCLES = (spec_mod.KINEMATIC_BICYCLE_2D, spec_mod.KINEMATIC_BICYCLE_2D_C3BF,
 # grows past the TPU compile helper's limits at M=120.  The CUDA kernel's
 # limit is one thread a decision variable of its 128-thread block.
 MAX_DECISION = 128
+# The kernel runs a problem of M <= 32 in a block of one warp (32 threads).
+WARP = 32
 BOUND_CLAMP = 1e6  # infinite single-sided state bounds become +-1e6
 ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.0)
 
-# Kernel launches made by ``solve_fused_batch`` (CPU calls do not count),
-# and calls of ``solve_fused_batch`` on any device.
+# Kernel launches made by ``solve_fused_batch`` (CPU calls do not count);
+# of them, those in one-warp blocks; and calls of ``solve_fused_batch`` on
+# any device.
 LAUNCH_COUNT = 0
-graphs.count_launches(__name__, clocked=True)
+NARROW_LAUNCH_COUNT = 0
+graphs.count_launches(__name__, clocked=True, also=("NARROW_LAUNCH_COUNT",))
 DISPATCH_COUNT = 0
 
 # The kernel's parameter block on each device, by its values: a call with a
@@ -259,10 +265,20 @@ def solve_fused_batch(model_name, spec, xs, goals, obs, u_prevs, U_warm, dt,
         )
     if err != 0:
         raise RuntimeError(f"mpc_fused_kernel launch failed: CUDA error {err}")
-    LAUNCH_COUNT += 1
+    _count_launch(lib, shape)
     U = U_out.reshape(B, pb.N, pb.m)
     return FusedResult(u=U[:, 0].contiguous(), U=U, xs=xs_out.reshape(B, pb.N + 1, pb.n),
                        viol=viol)
+
+
+def _count_launch(lib, shape) -> None:
+    """Count a launch of ``lib`` at ``shape`` (``_shape_args``): in
+    ``LAUNCH_COUNT``, and in ``NARROW_LAUNCH_COUNT`` where the kernel ran it
+    in one-warp blocks."""
+    global LAUNCH_COUNT, NARROW_LAUNCH_COUNT
+    LAUNCH_COUNT += 1
+    if lib.mpc_fused_block_threads(*shape) == WARP:
+        NARROW_LAUNCH_COUNT += 1
 
 
 def _device_params(values: list, device: torch.device) -> torch.Tensor:
@@ -292,6 +308,15 @@ def workspace_floats(model_name, spec, dt, cfg) -> int:
     from safe_control_tpu_torch import _build
 
     return _build.load_mpc_fused_kernel().mpc_fused_workspace_floats(
+        *_shape_args(model_name, spec, dt, cfg))
+
+
+def block_threads(model_name, spec, dt, cfg) -> int:
+    """Threads a block of the CUDA kernel's launch at this configuration:
+    ``WARP`` at M <= 32, else 128 (asks the built library)."""
+    from safe_control_tpu_torch import _build
+
+    return _build.load_mpc_fused_kernel().mpc_fused_block_threads(
         *_shape_args(model_name, spec, dt, cfg))
 
 

@@ -14,6 +14,8 @@ filled with NaN bytes before each block, so that a read of shared memory
 that no thread wrote shows.  No FMA contraction, as ``-fmad=false`` on the
 card, so a kernel that rounds as its plain version does gives the same bits
 on the CPU.  A kernel that uses another CUDA feature extends the header.
+A built library's ``emu_block_threads()`` gives the threads a block of its
+last launch.
 
 The C library's ``sinf``, ``cosf``, ``expf``, ``atan2f``, ``tanf``, ``atanf``
 and ``tanhf`` round unlike
@@ -176,6 +178,8 @@ static inline float __shfl_xor_sync(unsigned, float v, int mask, int width = 32)
   return emu_exchange(v, (lane & ~(width - 1)) + ((lane ^ mask) & (width - 1)));
 }
 static inline void* emu_dynamic_shared() { return emu_dyn.data(); }
+// Threads a block of the last launch (0 before any).
+extern "C" int emu_block_threads() { return emu_nthreads; }
 static inline void emu_entry() {
   emu_body();
   emu_threads[emu_cur].done = true;

@@ -415,9 +415,11 @@ def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch):
         raise AssertionError("the CUDA path ran the plain version")
 
     monkeypatch.setattr(tfused, "solve_fused_batch_reference", refuse)
+    narrow = tfused.NARROW_LAUNCH_COUNT
     kern = tfused.solve_fused_batch(QUAD_3D, spec, *ins, DT, cfg)
     torch.cuda.synchronize()
     assert tfused.LAUNCH_COUNT == before + 1
+    assert tfused.NARROW_LAUNCH_COUNT == narrow  # M=40: 128 threads
     assert (kern.U - plain.U).abs().max().item() < 5e-3
     assert (kern.xs - plain.xs).abs().max().item() < 5e-3
     assert (kern.viol - plain.viol).abs().max().item() <= 1e-3
@@ -446,7 +448,8 @@ def test_wide_kernel_matches_plain_version_on_card(cuda_device):
 @pytest.mark.gpu
 def test_new_instantiation_matches_plain_version_on_card(cuda_device):
     """On a card: the DPCBF bicycle's instantiation (moving obstacles) against
-    its plain version, one launch, within the kernel envelope."""
+    its plain version, one launch in one-warp blocks (M=20), within the
+    kernel envelope."""
     from safe_control_tpu_torch import entry
 
     name = "KinematicBicycle2D_DPCBF"
@@ -454,10 +457,11 @@ def test_new_instantiation_matches_plain_version_on_card(cuda_device):
     spec = interop.spec_from_jax(make_spec(name))
     ins = entry.build_fused_step(64, model_name=name, device=cuda_device)[1]
     plain = tfused.solve_fused_batch_reference(name, spec, *ins, DT, cfg)
-    before = tfused.LAUNCH_COUNT
+    before = (tfused.LAUNCH_COUNT, tfused.NARROW_LAUNCH_COUNT)
     kern = tfused.solve_fused_batch(name, spec, *ins, DT, cfg)
     torch.cuda.synchronize()
-    assert tfused.LAUNCH_COUNT == before + 1
+    assert tfused.block_threads(name, spec, DT, cfg) == 32
+    assert (tfused.LAUNCH_COUNT, tfused.NARROW_LAUNCH_COUNT) == (before[0] + 1, before[1] + 1)
     assert torch.isfinite(kern.U).all()
     assert (kern.U - plain.U).abs().max().item() < 5e-3
     assert (kern.xs - plain.xs).abs().max().item() < 5e-3

@@ -1,10 +1,10 @@
 """The generic fused MPC kernel's CUDA source, built and run on the CPU.
 
 ``csrc/mpc_fused_kernel.cu`` is built with g++ under the block emulation of
-``cuda_on_cpu`` (every thread of a 128-thread block a fiber,
-``__syncthreads`` a barrier over the block, the dynamic shared memory a
-buffer of the launch's size filled with NaN bytes) and held to
-``solve_fused_batch_reference``, its plain PyTorch version, on the same
+``cuda_on_cpu`` (every thread of a block a fiber: one warp at M <= 32, 128
+threads above; ``__syncthreads`` a barrier over the block, the dynamic
+shared memory a buffer of the launch's size filled with NaN bytes) and held
+to ``solve_fused_batch_reference``, its plain PyTorch version, on the same
 float32 inputs with the full 8x3 budget:
 
 - bit for bit at Quad3D N=10 (the fused path's shape, M=40) and N=16
@@ -79,9 +79,11 @@ def _build(tmp_path_factory, ieee_math, source="mpc_fused_kernel.cu"):
     lib.mpc_fused_launch.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.mpc_fused_launch.restype = ctypes.c_int
-    for fn in (lib.mpc_fused_shared_bytes, lib.mpc_fused_workspace_floats):
+    for fn in (lib.mpc_fused_shared_bytes, lib.mpc_fused_workspace_floats,
+               lib.mpc_fused_block_threads):
         fn.argtypes = [ctypes.c_int] * 5
         fn.restype = ctypes.c_int
+    lib.emu_block_threads.restype = ctypes.c_int
     return lib
 
 
@@ -172,6 +174,7 @@ def test_cuda_source_on_the_cpu_is_bit_identical_to_plain_version(cpu_lib, monke
     else:
         args = integrator_problems(model_name, N, 3, CIRCLES)
     U, xs, viol = launch(cpu_lib, model_name, spec, args, cfg)
+    assert cpu_lib.emu_block_threads() == (32 if U[0].numel() <= 32 else 128)
     plain = mf.solve_fused_batch_reference(model_name, spec, *args, entry.DT, cfg)
     assert torch.isfinite(plain.U).all() and (plain.U != args[4]).any()  # the solve moved U
     assert torch.equal(U, plain.U)
@@ -243,6 +246,66 @@ def test_shared_memory_layout(cpu_lib):
     assert ws[QUAD_3D, 30] == 120 * (NR + NC)
     assert sizes[QUAD_3D, 30] <= block_max and sizes[VTOL_2D, 30] <= block_max
     assert cpu_lib.mpc_fused_threads() == 128
+
+
+@pytest.mark.parametrize("model_name,N,threads", [
+    (DYNAMIC_UNICYCLE_2D, 10, 32),  # M=20, the benchmark cells' shape
+    (DYNAMIC_UNICYCLE_2D, 16, 32),  # M=32, the widest in one warp
+    (DYNAMIC_UNICYCLE_2D, 17, 128),  # M=34
+    (QUAD_3D, 10, 128),  # M=40
+    (VTOL_2D, 30, 128),  # M=120, the wide layout
+])
+def test_block_is_one_warp_up_to_a_decision_width_of_32(cpu_lib, model_name, N, threads):
+    """The launch's threads a block follow the decision width alone: one
+    warp at M <= 32, 128 threads above it and in the wide layout; 128 stays
+    the width limit."""
+    spec = make_spec(model_name)
+    cfg = mpc_cbf.MPCConfig(horizon=N, num_obs=5)
+    shape = mf._shape_args(model_name, spec, entry.DT, cfg)
+    assert cpu_lib.mpc_fused_block_threads(*shape) == threads
+    assert (cpu_lib.mpc_fused_workspace_floats(*shape) > 0) == (model_name == VTOL_2D)
+    assert cpu_lib.mpc_fused_threads() == 128
+
+
+def test_benchmark_cells_shape_in_one_warp_is_bit_identical(ieee_lib, monkeypatch):
+    """DynamicUnicycle2D N=10, K=5, one bound row (the speed), as the
+    benchmark cells run it (M=20, NR=60, NC=70): one-warp blocks, and the
+    plain version's bits; its layout lets 14 blocks into an SM's 228 KB (1 KB
+    of it reserved a block)."""
+    cuda_on_cpu.ieee_math(monkeypatch)
+    spec = make_spec(DYNAMIC_UNICYCLE_2D, a_max=1.0, w_max=0.5)
+    cfg = mpc_cbf.MPCConfig(horizon=10, num_obs=5)
+    pb = mf._problem(DYNAMIC_UNICYCLE_2D, spec, cfg)
+    assert (pb.N * pb.m, pb.N * (pb.n + pb.m), pb.N * (pb.K + 2 * len(pb.bounded))) == (20, 60, 70)
+    shape = mf._shape_args(DYNAMIC_UNICYCLE_2D, spec, entry.DT, cfg)
+    smem = ieee_lib.mpc_fused_shared_bytes(*shape)
+    assert smem == 15_224 and 233_472 // (smem + 1_024) == 14
+    args = entry.build_fused_step(4, model_name=DYNAMIC_UNICYCLE_2D, horizon=10, device="cpu")[1]
+    U, xs, viol = launch(ieee_lib, DYNAMIC_UNICYCLE_2D, spec, args, cfg)
+    assert ieee_lib.emu_block_threads() == 32
+    plain = mf.solve_fused_batch_reference(DYNAMIC_UNICYCLE_2D, spec, *args, entry.DT, cfg)
+    assert torch.isfinite(plain.U).all() and (plain.U != args[4]).any()
+    assert torch.equal(U, plain.U)
+    assert torch.equal(xs, plain.xs)
+    assert torch.equal(viol, plain.viol)
+
+
+@pytest.mark.parametrize("model_name,N,narrow", [
+    (DYNAMIC_UNICYCLE_2D, 10, True),
+    (QUAD_3D, 10, False),
+])
+def test_narrow_launch_count_counts_one_warp_launches(cpu_lib, monkeypatch, model_name, N,
+                                                      narrow):
+    """Each launch adds one to ``LAUNCH_COUNT``, and one to
+    ``NARROW_LAUNCH_COUNT`` where the kernel runs it in one warp (M <= 32)."""
+    monkeypatch.setattr(mf, "LAUNCH_COUNT", 0)
+    monkeypatch.setattr(mf, "NARROW_LAUNCH_COUNT", 0)
+    spec = make_spec(model_name)
+    cfg = mpc_cbf.MPCConfig(horizon=N, num_obs=5)
+    shape = mf._shape_args(model_name, spec, entry.DT, cfg)
+    for i in range(1, 3):
+        mf._count_launch(cpu_lib, shape)
+        assert (mf.LAUNCH_COUNT, mf.NARROW_LAUNCH_COUNT) == (i, i if narrow else 0)
 
 
 @pytest.mark.parametrize("model_name,N,lib_name", [
@@ -396,8 +459,9 @@ class ActiveRows(torch.overrides.TorchFunctionMode):
 def test_phase_clock_keeps_the_bits_and_counts_each_block(cpu_lib, clock_lib, monkeypatch,
                                                           model_name, N):
     """DoubleIntegrator2D near two circles at the full 8x3 budget (N=10,
-    B=3) and Quad3D at the RTI budget past a block's shared memory (N=30,
-    B=2), launched with the clock's library and with the plain one: the same
+    B=3; M=20, a one-warp block) and Quad3D at the RTI budget past a block's
+    shared memory (N=30, B=2; 128 threads), launched with the clock's library
+    and with the plain one: the same
     bits as the plain version each time.  Only the clock's library writes the
     totals: one slot a problem, whose ten phase totals add up to the block's
     cycles exactly, each Newton-step phase entered outer x newton times, and
@@ -416,6 +480,7 @@ def test_phase_clock_keeps_the_bits_and_counts_each_block(cpu_lib, clock_lib, mo
     assert fields == 2 * k + 2 and slots >= 4096
     totals = torch.zeros((slots, fields), dtype=torch.int64)
     on = launch(clock_lib, model_name, spec, args, cfg, totals)
+    assert clock_lib.emu_block_threads() == (32 if model_name == DOUBLE_INTEGRATOR_2D else 128)
     after_on = totals.clone()
     off = launch(cpu_lib, model_name, spec, args, cfg)
     assert torch.equal(totals, after_on)

@@ -224,6 +224,7 @@ def test_kernel_timer_trace_and_annotate_on_cpu(tmp_path):
     counters = data["port_counters"]
     assert counters[f"{mpc_fused.__name__}.DISPATCH_COUNT"] == 0
     assert counters[f"{mpc_fused.__name__}.LAUNCH_COUNT"] == 0
+    assert counters[f"{mpc_fused.__name__}.NARROW_LAUNCH_COUNT"] == 0
     assert counters[f"{mpc_cbf.__name__}._FUSED_FALLBACK_SEEN"] == 0
 
 

@@ -267,7 +267,8 @@ def test_captured_step_follows_the_switch_on_the_card(cuda_device):
     """A captured step that launches B3 keeps a graph for each state of the
     switch: the traced one is captured when the port sees tracing turn on,
     replays B3's clocked instantiation, and gives the untraced graph's bits;
-    after the profile the untraced graph replays again."""
+    after the profile the untraced graph replays again.  Every call counts
+    one launch, in one-warp blocks (M=20), as an eager launch does."""
     from safe_control_tpu_torch import entry
     from safe_control_tpu_torch.core import graphs
     from safe_control_tpu_torch.core.spec import DYNAMIC_UNICYCLE_2D, make_spec
@@ -282,8 +283,11 @@ def test_captured_step_follows_the_switch_on_the_card(cuda_device):
         lambda *a: tuple(mf.solve_fused_batch(DYNAMIC_UNICYCLE_2D, spec, *a, entry.DT, cfg)),
         True)
     new_session()
+    counts = lambda: (mf.LAUNCH_COUNT, mf.NARROW_LAUNCH_COUNT)
+    before = counts()
     off = [t.clone() for t in step(*args)]
     assert step.clocked and list(step.graphs) == [False]
+    assert counts() == (before[0] + 2, before[1] + 2)  # the warm-up and the first replay
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         assert profiling.tracing()
         assert set(step.graphs) == {False, True}
@@ -294,5 +298,6 @@ def test_captured_step_follows_the_switch_on_the_card(cuda_device):
     again = step(*args)
     torch.cuda.synchronize()
     assert mf.trace_totals()["newton_steps"] == 4 * cfg.outer_iters * cfg.newton_iters
+    assert counts() == (before[0] + 4, before[1] + 4)
     for a, b, c in zip(off, on, again):
         assert torch.equal(a, b) and torch.equal(a, c)
