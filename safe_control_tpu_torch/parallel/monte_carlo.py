@@ -27,6 +27,7 @@ import torch
 
 from safe_control_tpu_torch.parallel import mesh as mesh_mod
 from safe_control_tpu_torch.sim import tracking
+from safe_control_tpu_torch.utils.profiling import span
 
 
 class SweepState(NamedTuple):
@@ -73,16 +74,19 @@ def dpcbf_sweep_init(cfg: tracking.TrackerConfig, spec, generator: torch.Generat
 
 def run_sweep_chunk(cfg: tracking.TrackerConfig, spec, state: SweepState, waypoints, n_waypoints,
                     n_steps: int, y_range=(0.0, 15.0), with_trajectory: bool = False):
-    """Advance every scenario by ``n_steps``.  With ``with_trajectory`` also
-    return the per-step states ``x (B, n_steps, n)``, inputs ``u (B,
-    n_steps, m)`` and obstacle centres after the step ``obs_xy (B, n_steps,
-    K, 2)``, stacked on the device."""
+    """Advance every scenario by ``n_steps``: each step the tracking step
+    (the span ``tracking.step``), then the obstacles' (``sweep.obstacles``,
+    timed on the device too).  With ``with_trajectory`` also return the
+    per-step states ``x (B, n_steps, n)``, inputs ``u (B, n_steps, m)`` and
+    obstacle centres after the step ``obs_xy (B, n_steps, K, 2)``, stacked
+    on the device."""
     tr, obs = state.tracker, state.obs
     xs, us, oxy = [], [], []
     for _ in range(n_steps):
         out = tracking.step(cfg, spec, tr, waypoints, n_waypoints, obs)
         tr = out.state
-        obs = tracking.step_dynamic_obstacles(obs, cfg.dt, y_range=y_range)
+        with span("sweep.obstacles", device=True):
+            obs = tracking.step_dynamic_obstacles(obs, cfg.dt, y_range=y_range)
         if with_trajectory:
             xs.append(tr.x)
             us.append(out.u)

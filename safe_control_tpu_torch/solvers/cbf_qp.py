@@ -24,6 +24,7 @@ from safe_control_tpu_torch.barriers.hocbf import ct_cbf_row, ct_cbf_rows_multi,
 from safe_control_tpu_torch.core.types import is_dummy
 from safe_control_tpu_torch.dynamics import get_model
 from safe_control_tpu_torch.solvers import qp
+from safe_control_tpu_torch.utils.profiling import span
 
 KERNEL_MIN_BATCH = 128  # 'auto' sends CUDA float32 batches this large to the kernel
 
@@ -90,11 +91,14 @@ def solve(model_name: str, spec, x, u_ref, obs, dt: float, mode: str = "cbf",
 
 
 def _solve(solver, model_name, spec, x, u_ref, obs, dt, mode, iters) -> CBFQPResult:
+    """The rows and the QP data traced as the span ``cbf_qp.rows``, timed
+    on the device too."""
     model = get_model(model_name)
     obs = obs.expand((x.shape[0],) + obs.shape[-2:])
-    P, q, A, l, u_up, a_rows, b_vals, dummy = _assemble(
-        model, model_name, spec, x, u_ref, obs, dt, mode
-    )
+    with span("cbf_qp.rows", device=True):
+        P, q, A, l, u_up, a_rows, b_vals, dummy = _assemble(
+            model, model_name, spec, x, u_ref, obs, dt, mode
+        )
     sol = solver(P, q, A, l, u_up, iters=iters)
     return _result(sol, a_rows, b_vals, dummy)
 

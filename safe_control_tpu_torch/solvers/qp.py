@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from safe_control_tpu_torch.solvers.chol import chol_factor, chol_solve_factored
+from safe_control_tpu_torch.utils.profiling import span
 
 N_STAGES = 8  # adaptive-rho refactorization points
 
@@ -61,8 +62,14 @@ def equilibrate(P, q, A, l, u) -> Scaled:
 
     Rows are scaled to unit norm (zero rows, the padded constraints, get
     d = 1e6 and stay inert; infinite bounds stay infinite), then columns by
-    ``1 / sqrt(column norm)``.
+    ``1 / sqrt(column norm)``.  Traced as the span ``qp.equilibrate``, timed
+    on the device too.
     """
+    with span("qp.equilibrate", device=True):
+        return _equilibrate(P, q, A, l, u)
+
+
+def _equilibrate(P, q, A, l, u) -> Scaled:
     row_norm = torch.linalg.vector_norm(A, dim=-1)
     d = 1.0 / torch.clamp_min(row_norm, 1e-6)
     As = A * d[..., None]
@@ -82,7 +89,13 @@ def finish(P, q, A, l, u, s: Scaled, x, y, polish: bool, polish_reg=1e-8,
     ``x``, ``y`` are the ADMM iterate in the scaled variables of ``s``.
     Residuals are in ROW-SCALED units: a row of norm 1e6 solved to float32
     precision has a raw residual near 1e-1 while being numerically exact.
+    Traced as the span ``qp.finish``, timed on the device too.
     """
+    with span("qp.finish", device=True):
+        return _finish(P, q, A, l, u, s, x, y, polish, polish_reg, act_tol)
+
+
+def _finish(P, q, A, l, u, s, x, y, polish, polish_reg, act_tol) -> QPSolution:
     if polish:
         x, y = _polish(s.P, s.q, s.A, s.l, s.u, x, y, polish_reg, act_tol)
     x = s.e * x

@@ -30,6 +30,7 @@ import torch
 from safe_control_tpu_torch.core import graphs
 from safe_control_tpu_torch.solvers import qp
 from safe_control_tpu_torch.solvers.chol import chol_factor, chol_solve_factored
+from safe_control_tpu_torch.utils.profiling import span
 
 N_STAGES = qp.N_STAGES
 MAX_N = 8  # variables per problem the kernel is instantiated for (1..8)
@@ -38,6 +39,10 @@ MAX_N = 8  # variables per problem the kernel is instantiated for (1..8)
 THREADS = 128
 MIN_GROUP, MAX_GROUP = 8, 32  # lanes per problem
 MAX_REG_ROWS = 8  # rows a lane holds in registers; past that, in global memory
+# Problems a launch takes: the kernel's B and its block and problem indices
+# are 32-bit ints (per-problem offsets are size_t), and the block count
+# rounds B up to whole blocks.
+MAX_BATCH = 2**31 - THREADS
 
 # Kernel launches made by ``solve_qp_batch`` (CPU calls do not count).
 LAUNCH_COUNT = 0
@@ -91,14 +96,16 @@ def solve_qp_batch(P, q, A, l, u, iters: int = 1600, rho: float = 1.0,
     ``l``/``u (B,m)`` (infinite bounds allowed), n <= 8.
 
     CPU tensors go to ``solve_qp_batch_reference``; CUDA float32 tensors
-    launch the CUDA kernel on the current stream.  Returns a batched
-    ``QPSolution`` in the original variables.
+    launch the CUDA kernel on the current stream, traced as the span
+    ``qp.kernel`` (between ``qp.equilibrate`` and ``qp.finish``).  Returns
+    a batched ``QPSolution`` in the original variables.
     """
     _check_inputs(P, q, A, l, u)
     if A.device.type == "cpu":
         return solve_qp_batch_reference(P, q, A, l, u, iters, rho, sigma, alpha, polish)
     s = qp.equilibrate(P, q, A, l, u)
-    x, y = _sweep_cuda(s.P, s.q, s.A, s.l, s.u, iters, rho, sigma, alpha)
+    with span("qp.kernel", device=True):
+        x, y = _sweep_cuda(s.P, s.q, s.A, s.l, s.u, iters, rho, sigma, alpha)
     return qp.finish(P, q, A, l, u, s, x, y, polish)
 
 
@@ -111,8 +118,10 @@ def _sweep_cuda(P, q, A, lo, hi, iters, rho0, sigma, alpha):
     global LAUNCH_COUNT
     from safe_control_tpu_torch import _build
 
-    lib = _build.load_qp_admm_kernel()
     B, m, n = A.shape
+    if B > MAX_BATCH:
+        raise ValueError(f"the QP kernel takes at most {MAX_BATCH} problems a launch, got {B}")
+    lib = _build.load_qp_admm_kernel()
     P, q, A, lo, hi = (t.contiguous() for t in (P, q, A, lo, hi))
     x = torch.empty((B, n), dtype=torch.float32, device=A.device)
     y = torch.empty((B, m), dtype=torch.float32, device=A.device)

@@ -262,6 +262,60 @@ def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch, batch, m
         qpk.solve_qp_batch(*(t.double() for t in ins))
 
 
+def test_wrapper_refuses_a_batch_past_the_kernels_int_indices():
+    """The kernel's B and its block and problem indices are 32-bit ints: a
+    launch of more problems is refused before anything is built or copied
+    (stride-0 views: nothing of that size is made)."""
+    P, q, A, l, u = interop.qp_from_numpy(*cbf_qps(1))
+    big = qpk.MAX_BATCH + 1
+    views = [t.expand((big,) + t.shape[1:]) for t in (P, q, A, l, u)]
+    with pytest.raises(ValueError, match="at most"):
+        qpk._sweep_cuda(*views, 400, 1.0, 1e-6, 1.6)
+    assert qpk.MAX_BATCH + qpk.THREADS == 2**31
+
+
+def sweep_scale_qps(B, k, seed):
+    """CBF-QP-shaped problems at n=2: ``k`` CBF rows, about a quarter of
+    them inert (0 u + 1 >= 0, the padded obstacles), and the input box."""
+    g = torch.Generator().manual_seed(seed)
+    a_rows = torch.randn((B, k, 2), generator=g)
+    b = 0.5 * torch.randn((B, k), generator=g)
+    inert = torch.rand((B, k), generator=g) < 0.25
+    a_rows[inert] = 0.0
+    b[inert] = 1.0
+    A = torch.cat([a_rows, torch.eye(2).expand(B, 2, 2)], dim=1)
+    l = torch.cat([-b, torch.full((B, 2), -1.0)], dim=1)
+    u = torch.cat([torch.full((B, k), float("inf")), torch.ones((B, 2))], dim=1)
+    P = (2.0 * torch.eye(2)).expand(B, 2, 2).contiguous()
+    q = -2.0 * (3.0 * torch.rand((B, 2), generator=g) - 1.5)
+    return P, q, A, l, u
+
+
+@pytest.mark.gpu
+def test_kernel_at_the_sweep_scale_matches_plain_version_bit_for_bit(cuda_device):
+    """B2 at the DPCBF sweep's scale: B = 2^19, n=2, m=10 (8 CBF rows and
+    the box), 400 iterations, 65,536 blocks of 8 problems.  Its x and y on
+    a seeded sample of problems, the first and the last block's among them,
+    against the plain sweep on those problems alone: bit for bit."""
+    B, k, iters = 2**19, 8, 400
+    assert qpk.launch_shape(k + 2) == (16, 1)
+    ins = [t.to(cuda_device) for t in sweep_scale_qps(B, k, seed=2**31 + 19)]
+    s = tqp.equilibrate(*ins)
+    args = (iters, 1.0, 1e-6, 1.6)
+    before = qpk.LAUNCH_COUNT
+    x, y = qpk._sweep_cuda(s.P, s.q, s.A, s.l, s.u, *args)
+    torch.cuda.synchronize()
+    assert qpk.LAUNCH_COUNT == before + 1
+    assert torch.isfinite(x).all() and torch.isfinite(y).all()
+    per_block = qpk.THREADS // 16
+    rng = np.random.default_rng(2**31 + 29)
+    rows = sorted(set(rng.choice(B, 4096, replace=False).tolist())
+                  | set(range(per_block)) | set(range(B - per_block, B)))
+    idx = torch.tensor(rows, device=cuda_device)
+    x_p, y_p = qpk._sweep_plain(*(t[idx] for t in (s.P, s.q, s.A, s.l, s.u)), *args)
+    assert torch.equal(x[idx], x_p) and torch.equal(y[idx], y_p)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
