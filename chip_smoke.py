@@ -26,8 +26,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    version's activation tests on these inputs), its bound at 67 TFLOP/s and
    the share of it reached.
 5. Reports the QP ADMM kernel's build (seconds, ptxas registers, stack and
-   spills) and its launch shape at m=7 and m=153: lanes a problem, register
-   rows a lane, problems and threads a block.
+   spills) and its launch shape at n=2, m=7 (B=4096), n=2, m=10 (B=2^19,
+   one lane a problem) and n=3, m=153: lanes a problem, register rows a
+   lane, problems and threads a block.  The B2 phases print the shape they
+   took.
 6. Holds the QP kernel against its plain version: (a) the DoubleIntegrator2D
    CBF-QPs of ``entry.build_cbf_qp_step`` at 1600 iterations, at B=4096 and
    on ragged batches, B=1 (a lone group), B=17 (a partly filled warp) and
@@ -147,6 +149,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
     (gated), the success and collision rates, the spread of min h (each
     scenario's least clearance), scenarios/s, ms a step and B2's share, the
     first 64 scenarios' first 20 controls against B2's plain version.
+    21b. B2 at the sweep's benchmark scale (2^19 scenarios, n=2, m=10, 400
+    iterations, one lane a problem): the QPs of the sweep's first step
+    against the plain sweep on a seeded sample with the first and last
+    blocks, bit for bit (gated), one launch counted in ``LANE_LAUNCH_COUNT``
+    (gated), the launch's ms, bound and share.
 22. MPCC (``solvers/mpcc.py``, N=30, M=90, the general AL-GN solve): one
     float64 solve at a 3x2 budget on the card and on the CPU (|du| <= 1e-6)
     and one float32 solve at the full 12x4 budget, eager, timed.
@@ -338,6 +345,17 @@ def ptxas_summary(report: str, keep=None) -> str:
             regs = ln.split("Used")[1].split(",")[0].strip()
             out.append(f"{name}: {regs}, {stack}")
     return " | ".join(out)
+
+
+def b2_shape(B: int, n: int, m: int) -> str:
+    """B2's launch shape for ``B`` problems of ``n`` variables and ``m`` rows,
+    in words."""
+    from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+    G, R = qpk.launch_shape(B, n, m)
+    if G == 1:
+        return f"one lane a problem, {R} row slots"
+    return f"{G} lanes a problem, {R} register rows a lane"
 
 
 def fused_instantiation(mangled: str) -> tuple:
@@ -1000,7 +1018,8 @@ def dynamic_env(dev, card):
     print(f"phase 17 [{card}] fleet, {model} cbf_qp among 8 moving obstacles: "
           f"tracking.run_dynamic of {DYN_STEPS} steps at B={FLEET}, QP kernel launches "
           f"{launches}; {FLEET * DYN_STEPS / wall:.1f} robot-steps/s, {step_ms:.3f} ms a step, "
-          f"B2 {kernel_ms:.4f} ms a step (n={qn}, m={qm}: bound {b2_bound:.4f} ms by {b2_by}, "
+          f"B2 {kernel_ms:.4f} ms a step (n={qn}, m={qm}, {b2_shape(FLEET, qn, qm)}: bound "
+          f"{b2_bound:.4f} ms by {b2_by}, "
           f"{100 * b2_bound / kernel_ms:.2f}% of it reached; {100 * kernel_ms / step_ms:.1f}% "
           f"of the step); at the "
           f"end {100 * done:.2f}% of the robots RET_DONE and {100 * infeasible:.2f}% "
@@ -1050,9 +1069,8 @@ def manipulator_cbf_qp(dev, card):
     ms = sync_time(run, 5)
     ops = b2_flops(BATCH, n, m, 1600)
     bnd, by = bound(ops, BATCH * (n * n + 2 * n + m * n + 4 * m) * 4)
-    G, R = qpk.launch_shape(m)
     print(f"phase 18 [{card}] Manipulator2D CBF-QP through cbf_qp.solve_batch at B={BATCH} "
-          f"(n={n}, m={m}: {G} lanes a problem, {R} register rows a lane): QP kernel launches "
+          f"(n={n}, m={m}: {b2_shape(BATCH, n, m)}): QP kernel launches "
           f"{launches}, vs plain max|dx| {dx:.3e}, feasible flags equal {feas_same} "
           f"({int(kern.feasible.sum())} feasible), bit-identical {same}; the launch {ms:.4f} ms, "
           f"{ops:.4e} operations (1600 iterations), bound {bnd:.4f} ms by {by}, "
@@ -1328,7 +1346,8 @@ def monte_carlo_sweep(dev, card):
           f"{100 * coll:.2f}%; min h (least clearance, m) min {q[0]:.4f}, p5 {q[1]:.4f}, "
           f"median {q[2]:.4f}, p95 {q[3]:.4f}, max {q[4]:.4f}; {SWEEP_BATCH / wall:.1f} "
           f"scenarios/s ({SWEEP_BATCH * SWEEP_STEPS / wall:.1f} scenario-steps/s), "
-          f"{step_ms:.3f} ms a step, B2 {kernel_ms:.4f} ms a step (bound {b2_bound:.4f} ms by "
+          f"{step_ms:.3f} ms a step, B2 {kernel_ms:.4f} ms a step (n={qn}, m={qm}, "
+          f"{b2_shape(SWEEP_BATCH, qn, qm)}; bound {b2_bound:.4f} ms by "
           f"{b2_by}, {100 * b2_bound / kernel_ms:.2f}% of it reached; "
           f"{100 * kernel_ms / step_ms:.1f}% of the step); replayed states equal the run's "
           f"{same_x}; per-step max|du| of {N_GENERAL} scenarios against the plain version: "
@@ -1339,6 +1358,70 @@ def monte_carlo_sweep(dev, card):
     if not same_x or max(dev_plain) >= QP_U_TOL or not np.isfinite(min_h).all():
         raise SystemExit("phase 21 failed: the sweep disagrees with the plain version")
     return launches, step_ms, kernel_ms, max(dev_plain), b2_bound, b2_by
+
+
+def sweep_scale_b2(dev, card):
+    """Phase 21b: B2 at the DPCBF sweep's benchmark scale, 2^19 scenarios
+    (the cell ``dpcbf_sweep.mc512k``, the one-lane shape at n=2, m=10, 400
+    iterations).  The QPs are the sweep's own: those of its first step,
+    taken at B2's launch.  x and y of one launch against the plain sweep on
+    a seeded sample of 4,096 problems and the first and last blocks': bit
+    for bit, else the phase fails.  The launch alone is timed.  Returns
+    (ms, bound, its kind, max |dx|, max |dy|, shape in words)."""
+    import numpy as np
+
+    from safe_control_tpu_torch.core.spec import make_spec
+    from safe_control_tpu_torch.parallel import monte_carlo as mc
+    from safe_control_tpu_torch.sim import tracking
+    from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+    t_phase = time.perf_counter()
+    B = 2**19
+    model = "KinematicBicycle2D_DPCBF"
+    spec = make_spec(model, a_max=5.0, radius=0.3)
+    cfg = tracking.TrackerConfig(model_name=model, pos_controller="cbf_qp", dt=0.05, num_obs=8,
+                                 qp_iters=400)
+    wps = torch.tensor(DYN_WAYPOINTS, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2**31 + 21)
+    st0 = mc.dpcbf_sweep_init(cfg, spec, gen, B, wps, device=dev)
+    seen, sweep_cuda = [], qpk._sweep_cuda
+    qpk._sweep_cuda = lambda *a: seen.append(a) or sweep_cuda(*a)
+    try:
+        tracking.step(cfg, spec, st0.tracker, wps, 2, st0.obs)
+    finally:
+        qpk._sweep_cuda = sweep_cuda
+    if len(seen) != 1:
+        raise SystemExit(f"phase 21b failed: the sweep's step made {len(seen)} B2 launches")
+    scaled, args = seen[0][:5], seen[0][5:]
+    _, qm, qn = scaled[2].shape
+    counts = (qpk.LAUNCH_COUNT, qpk.LANE_LAUNCH_COUNT)
+    x, y = sweep_cuda(*scaled, *args)
+    lane = (qpk.LAUNCH_COUNT - counts[0], qpk.LANE_LAUNCH_COUNT - counts[1])
+    per_block = qpk.THREADS // qpk.launch_shape(B, qn, qm)[0]
+    rng = np.random.default_rng(2**31 + 29)
+    rows = sorted(set(rng.choice(B, 4096, replace=False).tolist())
+                  | set(range(per_block)) | set(range(B - per_block, B)))
+    idx = torch.tensor(rows, device=dev)
+    x_p, y_p = qpk._sweep_plain(*(t[idx] for t in scaled), *args)
+    same = torch.equal(x[idx], x_p) and torch.equal(y[idx], y_p)
+    dx = (x[idx] - x_p).abs().max().item()
+    dy = (y[idx] - y_p).abs().max().item()
+    ms = sync_time(lambda: sweep_cuda(*scaled, *args), 10)
+    b2_bound, b2_by = bound(b2_flops(B, qn, qm, args[0]),
+                            B * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+    shape = b2_shape(B, qn, qm)
+    print(f"phase 21b [{card}] B2 at the DPCBF sweep's benchmark scale: the QPs of the first "
+          f"step of {B} scenarios (n={qn}, m={qm}, {args[0]} iterations), {shape}, "
+          f"{-(-B // per_block)} blocks; launches counted (all, one lane) {lane}; against "
+          f"the plain sweep on {len(rows)} problems (the first and last {per_block} among "
+          f"them) max|dx| {dx:.3e}, max|dy| {dy:.3e}, bit-identical {same}; {ms:.4f} ms a "
+          f"launch, bound {b2_bound:.4f} ms by {b2_by}, {100 * b2_bound / ms:.2f}% of it "
+          f"reached; phase {time.perf_counter() - t_phase:.1f} s")
+    if not same or not (torch.isfinite(x).all() and torch.isfinite(y).all()):
+        raise SystemExit("phase 21b failed: B2 at 2^19 disagrees with the plain sweep")
+    if lane != (1, 1):
+        raise SystemExit(f"phase 21b failed: the launch did not count as one lane: {lane}")
+    return ms, b2_bound, b2_by, dx, dy, f"DPCBF sweep n={qn} m={qm} B={B}: {shape}"
 
 
 def mpcc_alone(dev, card):
@@ -1700,7 +1783,8 @@ def heterogeneous_fleet(dev, card):
           + ", ".join(f"{p:.3f}" for p in progress) + f"; {stats}; finite {finite}")
     for p in per_group:
         print(f"phase 25 [{card}] B2 at {p['model']} (n={p['n']}, m={p['m']}, B={p['B']}, "
-              f"400 iterations): {p['ms']:.4f} ms a launch, bound {p['bound_ms']:.4f} ms by "
+              f"400 iterations, {b2_shape(p['B'], p['n'], p['m'])}): {p['ms']:.4f} ms a launch, "
+              f"bound {p['bound_ms']:.4f} ms by "
               f"{p['bound_by']}, {100 * p['bound_ms'] / p['ms']:.2f}% of it reached; replayed "
               f"states equal the run's {p['same_x']}, max|du| of {N_GENERAL} robots against the "
               f"plain version over {REPLAY['cbf_qp']} steps {p['max_abs_err']:.3e}")
@@ -2721,15 +2805,17 @@ def main() -> None:
     _build.load_qp_admm_kernel()
     info = _build.BUILD_INFO["qp_admm_kernel"]
     qp_shapes = []
-    for qm_ in (7, 153):
-        g_, r_ = qpk.launch_shape(qm_)
-        qp_shapes.append(f"m={qm_}: {g_} lanes a problem, {r_} register rows a lane, "
-                         f"{qpk.THREADS // g_} problems a block of {qpk.THREADS} threads")
-    g7 = qpk.launch_shape(7)[0]
-    path_kernels = {"qp_admm_kernel<2,%d,%d>" % qpk.launch_shape(7),
-                    "qp_admm_kernel<3,%d,%d>" % qpk.launch_shape(153)}
+    # the CBF-QP path, the DPCBF sweep at 2^19 and the Manipulator2D scale
+    qp_at = ((BATCH, 2, 7), (2**19, 2, 10), (BATCH, 3, 153))
+    for qb_, qn_, qm_ in qp_at:
+        qp_shapes.append(f"B={qb_}, n={qn_}, m={qm_}: {b2_shape(qb_, qn_, qm_)}, "
+                         f"{qpk.THREADS // qpk.launch_shape(qb_, qn_, qm_)[0]} problems a block "
+                         f"of {qpk.THREADS} threads")
+    g7 = qpk.launch_shape(BATCH, 2, 7)[0]
+    path_kernels = {"qp_admm_kernel<%d,%d,%d>" % (qn_, *qpk.launch_shape(qb_, qn_, qm_))
+                    for qb_, qn_, qm_ in qp_at}
     print(f"phase 5 build: qp_admm_kernel {info['seconds']:.1f} s (cached={info['cached']}, "
-          f"built beside mpc_du_kernel and phases 2-4); ptxas at n=2, m=7 and n=3, m=153: "
+          f"built beside mpc_du_kernel and phases 2-4); ptxas at those shapes: "
           f"{ptxas_summary(info['ptxas'], path_kernels)}; launch shape "
           + "; ".join(qp_shapes) + f"; at B={BATCH}, m=7: {-(-BATCH * g7 // qpk.THREADS)} blocks "
           f"on {sms} SMs")
@@ -2754,7 +2840,9 @@ def main() -> None:
         feas_k, feas_p = kern.prim_res < 1e-3, plain.prim_res < 1e-3
         feas_same = torch.equal(feas_k, feas_p)
         same = torch.equal(kern.x, plain.x) and torch.equal(kern.y, plain.y)
-        print(f"phase 6a QP kernel vs plain ({label}, n=2, m=7, 1600 iters): max|dx| {dx:.3e}, "
+        print(f"phase 6a QP kernel vs plain ({label}, n=2, m=7, 1600 iters, "
+              f"{b2_shape(data[0].shape[0], 2, 7)}): "
+              f"max|dx| {dx:.3e}, "
               f"max|dy| {dy:.3e}, bit-identical {same}, feasible flags equal {feas_same} "
               f"({int(feas_k.sum())} feasible)")
         if not (dx < QP_X_TOL and feas_same):
@@ -2768,7 +2856,8 @@ def main() -> None:
     both = (kern_w.prim_res < 1e-4) & (plain_w.prim_res < 1e-4)
     wide_dx = max_where((kern_w.x - plain_w.x).abs().amax(-1), both)
     same = torch.equal(kern_w.x, plain_w.x) and torch.equal(kern_w.y, plain_w.y)
-    print(f"phase 6b QP kernel vs plain (B={wb}, n={wn}, m={wm}, 300 iters): "
+    print(f"phase 6b QP kernel vs plain (B={wb}, n={wn}, m={wm}, 300 iters, "
+          f"{b2_shape(wb, wn, wm)}): "
           f"{int(both.sum())}/{wb} solved by both, max|dx| {wide_dx:.3e}, bit-identical {same}")
     if not (wide_dx < QP_WIDE_TOL and int(both.sum()) * 4 >= 3 * wb):
         raise SystemExit("phase 6b failed: QP kernel disagrees with its plain version at m=153")
@@ -2822,7 +2911,8 @@ def main() -> None:
         run_sweep = lambda: qpk._sweep_cuda(*scaled[:5], 1600, 1.0, 1e-6, 1.6)
         run_sweep()
         sweep_ms[b_] = sync_time(run_sweep, reps)
-    print(f"phase 8 [{card}] QP kernel launch (n=2, m=7, 1600 iterations): B=1 "
+    print(f"phase 8 [{card}] QP kernel launch (n=2, m=7, 1600 iterations, "
+          f"{b2_shape(1, 2, 7)} up to B=16384): B=1 "
           f"{sweep_ms[1]:.4f} ms, B={BATCH} {sweep_ms[BATCH]:.4f} ms, B=16384 "
           f"{sweep_ms[16384]:.4f} ms")
     run_qk = lambda: qpk.solve_qp_batch(*qp_data)
@@ -3062,6 +3152,7 @@ def main() -> None:
     # ---- phases 20-23: the drift models on B3, the sweep, MPCC, the drift car ------
     drift_shapes, drift_err, drift_bits = drift_b3_models(dev, card, b3_report)
     sweep = monte_carlo_sweep(dev, card)
+    sweep_b2 = sweep_scale_b2(dev, card)
     mpcc_alone(dev, card)
     drift_scenario(dev, card)
 
@@ -3116,11 +3207,14 @@ def main() -> None:
         "scenario_max_abs_err": max(new_errs["qp"]),
         "shapes": [arm_shape, {"shape": f"DPCBF sweep n=2 m=10 B={SWEEP_BATCH}",
                                "ms": sweep[2], "bound_ms": sweep[4], "bound_by": sweep[5],
-                               "max_abs_err": sweep[3]}]
+                               "max_abs_err": sweep[3]},
+                   {"shape": sweep_b2[5], "ms": sweep_b2[0], "bound_ms": sweep_b2[1],
+                    "bound_by": sweep_b2[2], "max_abs_err": max(sweep_b2[3:5])}]
         + [{"shape": f"fleet {p['model']} n={p['n']} m={p['m']} B={p['B']}", "ms": p["ms"],
             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
             "max_abs_err": p["max_abs_err"]} for p in het["groups"]],
         "max_abs_err": max(qp_dx, qp_dy, arm_shape["max_abs_err"], dyn[3], sweep[3],
+                           *sweep_b2[3:5],
                            *(p["max_abs_err"] for p in het["groups"]), *new_errs["qp"]),
         "ms": qp_ms,
         "plain_ms": qp_plain_ms,

@@ -12,44 +12,71 @@
 //
 // What bounds it on the H100: neither bytes nor FP32 rate.  A problem is
 // 34 floats in at n=2, m=7 (0.56 MB at B=4096, an FP32 bound of about
-// 0.013 ms), but every sweep depends on the last one, so the floor is one
-// sweep's dependent chain (the right-hand side summed over m rows, two
-// triangular solves with 2n IEEE divisions, the z/y update) times 1600.
-// The first port ran one problem per thread in 32-thread blocks, with A,
-// l, u, z and y in global memory: every sweep waited on L1/L2 round trips,
-// with one warp an SM at B=4096.  Here:
-//  - a group of G lanes solves one problem (G a power of two from 8 to 32,
-//    picked at launch from m: group_width), and lane r owns rows r, r+G,
-//    r+2G, ...; its rows of A, l, u, z and y sit in registers (R slots, a
-//    template parameter, rows past m hold zeros and stay zero);
-//  - x, the packed factor L, A'A, P and q are registers in every lane, and
-//    the n x n factor, both substitutions, the x update and the rho update
-//    run alike in every lane (the same operations, so the same values);
-//  - 128-thread blocks of 128 / G problems: at m=7, G=8, B=4096 is 1,024
-//    warps, about 8 an SM, which interleave their chains;
-//  - past MAX_REG_ROWS rows a lane (m > 256, which no caller in the repo
-//    reaches) the same kernel keeps a lane's rows in global memory instead:
-//    A, l and u read in place, z in the z scratch and y in the y output,
-//    each lane touching only its own rows, so they stay in its SM's L1.
-//    Global and not shared memory, because it has no size limit: every m
-//    the wrapper accepts runs in the kernel.
+// 0.013 ms), but every sweep depends on the last one: a sweep's dependent
+// chain (the right-hand side summed over m rows, two triangular solves
+// with 2n IEEE divisions, the z/y update) times the sweeps bounds a small
+// batch, and the instructions a sweep issues bound a large one.  Two
+// launch shapes run the same body (the same operations in the same order),
+// chosen by group_width from B, n and m:
+//  - a group of G lanes a problem (G a power of two from 8 to 32, from m).
+//    Lane r owns rows r, r+G, r+2G, ...; its rows of A, l, u, z and y sit
+//    in registers (R slots, rows past m hold zeros and stay zero).  x, the
+//    packed factor L, A'A, P and q are registers in every lane, and the
+//    n x n factor, both substitutions, the x update and the rho update run
+//    alike in every lane (the same operations, so the same values).  A sum
+//    over rows gathers the lanes' terms by shuffle, m dependent
+//    shuffle+add pairs.  A lane's chain is short (one row's z/y update),
+//    so a small batch runs fast; but a group of 16 for 10 rows idles 6
+//    lanes, and every lane repeats the n x n work, so at n=2, m=10 a
+//    problem's sweep costs a warp about 108 issue slots (2^19 problems:
+//    21.7 ms a launch on an H100);
+//  - one lane a problem (G = 1), at n = 2 or 3 and m from 7 (the shapes
+//    measured against the groups), where the state fits in a thread's
+//    registers: R row slots (m rounded up to even) of n + 4 floats (a row
+//    of A, l, u, z, y), P, L and A'A, at most LANE_WORDS.  Every sum over rows
+//    is a loop in the thread, with no shuffle; only the last slot can be
+//    empty (m odd), and only it is tested, so a slot past m costs no
+//    arithmetic.  A warp holds 32 problems, a 128-thread block 128.  At
+//    n=2, m=10 the sweep loop is 394 SASS instructions a warp (188
+//    operations under -fmad=false, 14 IEEE divisions, each a reciprocal,
+//    its refinement, a range check and a branch around the slow path),
+//    about 12 issue slots a problem: 2^19 problems x 400 sweeps over 132
+//    SMs x 4 schedulers at 1.98 GHz is an issue floor of 2.5 ms (6.4 ms
+//    a launch, 94 registers, 5 blocks an SM).  But one thread's sweep is
+//    the whole chain, about 2,500 cycles at m=10, 2-3x a group lane's: the
+//    shape wins only where the card holds enough warps to interleave.
+//    It is taken where the group shape would run LANE_MIN_LANES lanes or
+//    more (B >= 16,384 at G = 16, B >= 32,768 at G = 8), about where the
+//    two cross on an H100 (12,288-16,384 problems at m = 10-12,
+//    24,576-32,768 at m = 7);
+//  - past MAX_REG_ROWS rows a lane of a group (m > 256, which no caller in
+//    the repo reaches) the same kernel keeps a lane's rows in global memory
+//    instead: A, l and u read in place, z in the z scratch and y in the y
+//    output, each lane touching only its own rows, so they stay in its
+//    SM's L1.  Global and not shared memory, because it has no size limit:
+//    every m the wrapper accepts runs in the kernel.
+// The first port also ran one problem a thread, and was slow for two
+// reasons the one-lane shape does not have: A, l, u, z and y lived in
+// global memory, so every sweep waited on L1/L2 round trips, and at the
+// B=4096 it ran, 32-thread blocks left one warp an SM, with nothing to
+// interleave.  Here the rows are registers, and the one-lane shape is
+// taken only at batches that give every scheduler warps to interleave.
 // No tensor cores, TMA or cp.async: 136 bytes in a problem leave no copy
 // to overlap, and the sums are length-m dot products with n <= 8, which
 // TF32 (A rounded to 10 mantissa bits) would take outside the 1e-3
-// envelope.  What the chain lacks is registers in place of memory round
-// trips, and warps to interleave.
+// envelope.
 //
 // Numerics: compiled without --use_fast_math and with -fmad=false, so every
 // operation rounds as the plain PyTorch version
 // (solvers/qp_kernel.py::_sweep_plain) rounds it, and every sum runs in the
 // same order.  A sum over rows (A'A, the right-hand side, the dual
-// residual) is formed so: the lane that owns row j forms its term, and
-// every lane of the group reads the terms by shuffle and adds them in
-// index order, from row 0; so each lane holds the plain version's sum bit
-// for bit.  Ax sums over columns in order within a lane; the Cholesky and
-// its substitutions are solvers/chol.py's order.  The maximum over rows
-// (the primal residual) is a shuffle butterfly: fmaxf is exact in any
-// order.  fminf/fmaxf give torch.clamp's result on the +-inf and -1e6
+// residual) adds the rows' terms in index order, from row 0: in one lane
+// by a loop, in a group by every lane reading the terms by shuffle; so
+// each lane holds the plain version's sum bit for bit.  Ax sums over
+// columns in order within a lane; the Cholesky and its substitutions are
+// solvers/chol.py's order.  The maximum over rows (the primal residual) is
+// a loop in one lane and a shuffle butterfly in a group: fmaxf is exact in
+// any order.  fminf/fmaxf give torch.clamp's result on the +-inf and -1e6
 // bounds.  IEEE division and sqrtf, as the plain version.
 //
 // Layout: the (B, ...) tensors as the wrapper receives them from
@@ -59,7 +86,8 @@
 // the C entry point keeps its name and arguments, and z is now scratch,
 // used only past MAX_REG_ROWS rows a lane.)  The groups of a warp whose
 // problem lies past B solve a copy of the last problem and store nothing,
-// so every shuffle has all 32 lanes; whole idle warps return.
+// so every shuffle has all 32 lanes; whole idle warps return, and so does
+// a lane of the one-lane shape past B, which has no shuffle to feed.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,31 +97,69 @@ namespace {
 constexpr int N_STAGES = 8;
 constexpr int MAX_N = 8;
 constexpr int THREADS = 128;      // threads per block
-constexpr int MIN_GROUP = 8;      // lanes per problem for m <= 8
+constexpr int MIN_GROUP = 8;      // lanes per problem for m <= 8 in a group
 constexpr int MAX_GROUP = 32;     // lanes per problem from m = 17 on: a whole warp
-constexpr int MAX_REG_ROWS = 8;   // rows a lane holds in registers
+constexpr int MAX_REG_ROWS = 8;   // rows a lane of a group holds in registers
+constexpr int LANE_WORDS = 92;    // registers a problem's state takes in one lane, at most
+constexpr int LANE_MIN_N = 2;     // the one-lane shape's variables: measured at n = 2 and 3
+constexpr int LANE_MAX_N = 3;
+constexpr int LANE_MIN_ROWS = 7;  // and its rows: measured from m = 7
+constexpr int LANE_MIN_LANES = 262144;  // a group's lanes (B x G) from which one lane wins
 constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j; }  // i >= j
 
-// Lanes per problem: the least power of two >= m within [MIN_GROUP, MAX_GROUP].
-constexpr int group_width(int m) {
+// Row slots of the one-lane shape: m rounded up to even.
+constexpr int lane_rows(int m) { return m + (m & 1); }
+
+// Registers a problem's state takes in one lane: its row slots (a row of
+// A, l, u, z and y: n + 4 floats each), P, and the factor and A'A
+// (n (n + 1) / 2 floats each).
+constexpr int lane_words(int n, int slots) { return slots * (n + 4) + n * n + n * (n + 1); }
+
+// Lanes per problem in a group: the least power of two >= m within
+// [MIN_GROUP, MAX_GROUP].
+constexpr int group_lanes(int m) {
   int g = MIN_GROUP;
   while (g < MAX_GROUP && g < m) g *= 2;
   return g;
 }
 
-// Row slots a lane holds in registers: the least power of two >= m / G
-// (rounded up), or 0 past MAX_REG_ROWS (the rows stay in global memory).
-constexpr int reg_rows(int m) {
-  const int g = group_width(m);
+// Whether the one-lane shape is instantiated for n variables and m rows:
+// n from LANE_MIN_N to LANE_MAX_N, m from LANE_MIN_ROWS, and the state in
+// LANE_WORDS registers (m <= 12 at n=2, m <= 10 at n=3; at most 128
+// registers, no spill).  Those are the shapes timed against the groups on
+// an H100; the rest keep the groups.
+constexpr bool lane_fits(int n, int m) {
+  return n >= LANE_MIN_N && n <= LANE_MAX_N && m >= LANE_MIN_ROWS &&
+         lane_words(n, lane_rows(m)) <= LANE_WORDS;
+}
+
+// Lanes per problem: 1 where the one-lane shape fits and the group shape
+// would run LANE_MIN_LANES lanes or more (B x G: 8,192 warps, over 60 an
+// SM, so that its time grows with B, while one lane a problem gives each
+// of the 132 SMs' schedulers a warp or more); else the group's width.  On
+// an H100 the groups win below that batch: one lane a problem leaves most
+// schedulers one warp, whose sweep is one thread's whole chain.
+constexpr int group_width(int B, int n, int m) {
+  const int g = group_lanes(m);
+  return lane_fits(n, m) && B >= LANE_MIN_LANES / g ? 1 : g;
+}
+
+// Row slots a lane holds in registers: in one lane, m rounded up to even;
+// in a group, the least power of two >= m / G (rounded up), or 0 past
+// MAX_REG_ROWS (the rows stay in global memory).
+constexpr int reg_rows(int B, int n, int m) {
+  const int g = group_width(B, n, m);
+  if (g == 1) return lane_rows(m);
   int r = 1;
   while (r * g < m) r *= 2;
   return r <= MAX_REG_ROWS ? r : 0;
 }
 
-// A lane's rows j = k G + lane, k < R, in registers.  Rows past m hold
-// zeros, which the sweep keeps at zero (clip to [0, 0]).
+// A lane's rows j = k G + lane, k < R, in registers.  In a group, rows
+// past m hold zeros, which the sweep keeps at zero (clip to [0, 0]); in
+// one lane, the sweep skips the slot past m.
 template <int NV, int G, int R>
 struct Rows {
   float a_[R][NV], z_[R], y_[R], lo_[R], hi_[R];
@@ -105,7 +171,7 @@ struct Rows {
 #pragma unroll
     for (int k = 0; k < R; ++k) {
       const int j = k * G + lane;
-      const bool in = j < m;
+      const bool in = valid(k);
 #pragma unroll
       for (int i = 0; i < NV; ++i) a_[k][i] = in ? A[j * NV + i] : 0.0f;
       lo_[k] = in ? lo[j] : 0.0f;
@@ -115,10 +181,15 @@ struct Rows {
     }
   }
   __device__ static constexpr int count(int) { return R; }
-  __device__ bool valid(int k) const { return k * G + lane < m; }
-  // Whether the sweep updates slot k: every slot, since one past m is
-  // zeros and stays zero, and its terms never enter a sum over rows.
-  __device__ static constexpr bool runs(int) { return true; }
+  // Whether slot k holds a row.  In one lane every slot but the last does
+  // (R is m rounded up to even), so only the last is tested.
+  __device__ bool valid(int k) const { return (G == 1 && k + 1 < R) || k * G + lane < m; }
+  // Whether some lane of the group holds a row in slot k.
+  __device__ bool any(int k) const { return G == 1 ? valid(k) : k * G < m; }
+  // Whether the sweep updates slot k: in a group every slot, since one
+  // past m is zeros and stays zero, and its terms never enter a sum over
+  // rows; in one lane the rows alone.
+  __device__ bool runs(int k) const { return G > 1 || valid(k); }
   __device__ float a(int k, int i) const { return a_[k][i]; }
   __device__ float lo(int k) const { return lo_[k]; }
   __device__ float hi(int k) const { return hi_[k]; }
@@ -151,6 +222,7 @@ struct Rows<NV, G, 0> {
   }
   __device__ static int count(int m) { return (m + G - 1) / G; }
   __device__ bool valid(int k) const { return k * G + lane < m; }
+  __device__ bool any(int k) const { return k * G < m; }
   __device__ bool runs(int k) const { return valid(k); }
   __device__ float a(int k, int i) const { return valid(k) ? A_[(k * G + lane) * NV + i] : 0.0f; }
   __device__ float lo(int k) const { return lo_[k * G + lane]; }
@@ -168,7 +240,10 @@ struct Rows<NV, G, 0> {
 // order, the first count of them (all G if count >= G), where lane r holds p_r.
 template <int G, int T>
 __device__ __forceinline__ void add_lanes(float (&acc)[T], const float (&p)[T], int count) {
-  if constexpr (G <= MIN_GROUP) {
+  if constexpr (G == 1) {
+#pragma unroll
+    for (int t = 0; t < T; ++t) acc[t] = acc[t] + p[t];
+  } else if constexpr (G <= MIN_GROUP) {
     // Every shuffle runs, outside any branch, so they go out back to back;
     // only the adds of lanes past count are skipped (a select).
 #pragma unroll
@@ -194,7 +269,7 @@ template <int G, int T, class R, class Make>
 __device__ __forceinline__ void row_sum(const R& rows, int m, float (&acc)[T], Make make) {
 #pragma unroll
   for (int k = 0; k < R::count(m); ++k) {
-    if (k * G >= m) break;
+    if (!rows.any(k)) break;
     float p[T];
     make(k, p);
     add_lanes<G>(acc, p, m - k * G);
@@ -216,6 +291,7 @@ qp_admm_kernel(const float* __restrict__ P, const float* __restrict__ q,
   if (first + (threadIdx.x / 32) * (32 / G) >= B) return;  // the whole warp is idle
   const int g = threadIdx.x / G;
   const bool valid = first + g < B;
+  if (G == 1 && !valid) return;  // one lane a problem: no shuffle to feed
   const size_t b = valid ? first + g : B - 1;
 
   float Pm[NV][NV], qv[NV], x[NV];
@@ -344,7 +420,7 @@ qp_admm_kernel(const float* __restrict__ P, const float* __restrict__ q,
 }
 
 template <int NV, int G, int R>
-void launch(const void* P, const void* q, const void* A, const void* lo, const void* hi,
+bool launch(const void* P, const void* q, const void* A, const void* lo, const void* hi,
             void* x, void* z, void* y, int B, int m, int per_stage, float rho0, float sigma,
             float alpha, cudaStream_t stream) {
   constexpr int per_block = THREADS / G;
@@ -354,33 +430,54 @@ void launch(const void* P, const void* q, const void* A, const void* lo, const v
       static_cast<const float*>(A), static_cast<const float*>(lo),
       static_cast<const float*>(hi), static_cast<float*>(x), static_cast<float*>(z),
       static_cast<float*>(y), B, m, per_stage, rho0, sigma, alpha);
+  return true;
 }
 
-// One instantiation per launch shape that group_width and reg_rows give.
+// The one-lane instantiation with r row slots, r = S, S + 2, ... while
+// lane_fits; false, and nothing launched, for an r that none has.
+template <int NV, int S>
+bool launch_lane(const void* P, const void* q, const void* A, const void* lo, const void* hi,
+                 void* x, void* z, void* y, int B, int m, int per_stage, float rho0,
+                 float sigma, float alpha, cudaStream_t s, int r) {
+  if constexpr (lane_fits(NV, S)) {
+    if (r == S)
+      return launch<NV, 1, S>(P, q, A, lo, hi, x, z, y, B, m, per_stage, rho0, sigma, alpha, s);
+    return launch_lane<NV, S + 2>(P, q, A, lo, hi, x, z, y, B, m, per_stage, rho0, sigma, alpha,
+                                  s, r);
+  }
+  return false;
+}
+
+// One instantiation per launch shape that group_width and reg_rows give;
+// false if the shape has none (group_width and the instantiations disagree).
 template <int NV>
-void launch_shape(const void* P, const void* q, const void* A, const void* lo, const void* hi,
+bool launch_shape(const void* P, const void* q, const void* A, const void* lo, const void* hi,
                   void* x, void* z, void* y, int B, int m, int per_stage, float rho0,
                   float sigma, float alpha, cudaStream_t s) {
-  const int g = group_width(m), r = reg_rows(m);
+  const int g = group_width(B, NV, m), r = reg_rows(B, NV, m);
 #define QP_LAUNCH(G, R) launch<NV, G, R>(P, q, A, lo, hi, x, z, y, B, m, per_stage, rho0, \
                                          sigma, alpha, s)
-  if (g == 8) QP_LAUNCH(8, 1);
-  else if (g == 16) QP_LAUNCH(16, 1);
-  else if (r == 1) QP_LAUNCH(32, 1);
-  else if (r == 2) QP_LAUNCH(32, 2);
-  else if (r == 4) QP_LAUNCH(32, 4);
-  else if (r == 8) QP_LAUNCH(32, 8);
-  else QP_LAUNCH(32, 0);
+  if (g == 1)
+    return launch_lane<NV, lane_rows(LANE_MIN_ROWS)>(P, q, A, lo, hi, x, z, y, B, m, per_stage,
+                                                     rho0, sigma, alpha, s, r);
+  if (g == 8) return QP_LAUNCH(8, 1);
+  if (g == 16) return QP_LAUNCH(16, 1);
+  if (r == 1) return QP_LAUNCH(32, 1);
+  if (r == 2) return QP_LAUNCH(32, 2);
+  if (r == 4) return QP_LAUNCH(32, 4);
+  if (r == 8) return QP_LAUNCH(32, 8);
+  return QP_LAUNCH(32, 0);
 #undef QP_LAUNCH
 }
 
 }  // namespace
 
-// The launch shape for m rows: lanes per problem, and the row slots a lane
-// holds in registers (0: its rows stay in global memory).
-extern "C" void qp_admm_shape(int m, int* group, int* rows) {
-  *group = group_width(m);
-  *rows = reg_rows(m);
+// The launch shape for B problems of n variables and m rows: lanes per
+// problem, and the row slots a lane holds in registers (0: its rows stay
+// in global memory).
+extern "C" void qp_admm_shape(int B, int n, int m, int* group, int* rows) {
+  *group = group_width(B, n, m);
+  *rows = reg_rows(B, n, m);
 }
 
 extern "C" int qp_admm_launch(const void* P, const void* q, const void* A, const void* lo,
@@ -391,7 +488,9 @@ extern "C" int qp_admm_launch(const void* P, const void* q, const void* A, const
   if (m < 1 || per_stage < 1 || n < 1 || n > MAX_N)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QP_N(NV) launch_shape<NV>(P, q, A, lo, hi, x, z, y, B, m, per_stage, rho0, sigma, alpha, s)
+  bool launched;
+#define QP_N(NV) \
+  launched = launch_shape<NV>(P, q, A, lo, hi, x, z, y, B, m, per_stage, rho0, sigma, alpha, s)
   switch (n) {
     case 1: QP_N(1); break;
     case 2: QP_N(2); break;
@@ -403,5 +502,6 @@ extern "C" int qp_admm_launch(const void* P, const void* q, const void* A, const
     default: QP_N(8); break;
   }
 #undef QP_N
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

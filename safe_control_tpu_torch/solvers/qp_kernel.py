@@ -7,9 +7,20 @@ unscaling and the residuals (``qp.finish``) run as PyTorch ops around one
 kernel launch, which runs the whole ADMM iteration: A'A once, then 8 stages
 that each refactor K = P + sigma I + rho A'A (n x n Cholesky) and run
 ``iters // 8`` over-relaxed x/z/y sweeps with a clip projection, with a
-per-problem adaptive rho between stages (``csrc/qp_admm_kernel.cu``: a
-group of lanes per problem, each lane's rows in registers; the launch shape
-is ``launch_shape``).
+per-problem adaptive rho between stages (``csrc/qp_admm_kernel.cu``).
+
+The launch shape (``launch_shape``) adapts the one kernel body to the
+batch.  A group of 8 to 32 lanes solves a problem, each lane holding its
+own rows in registers and the sums over rows gathered by shuffle.  Where a
+problem of n = 2 or 3 variables and m >= 7 rows (the shapes measured
+against the groups) fits in one thread's registers (m rounded up to even
+row slots of n + 4 floats, P, the factor and A'A, at most ``LANE_WORDS``:
+m <= 12 at n=2, m <= 10 at n=3) and the batch is large enough that the
+groups would run ``LANE_MIN_LANES`` lanes or more (B >= 16384 at m = 9-12,
+B >= 32768 at m = 7-8), one lane solves it alone: every sum over rows is a loop in that thread, with no
+shuffle, and a warp holds 32 problems.  Below that batch the groups win
+(one thread's sweep is a longer chain than a group's).  ``LAUNCH_COUNT``
+counts the launches, ``LANE_LAUNCH_COUNT`` those of one lane a problem.
 
 ``solve_qp_batch_reference`` is the plain PyTorch version of that sweep:
 the same operations, every sum taken in the kernel's order (A'A over rows
@@ -34,19 +45,25 @@ from safe_control_tpu_torch.utils.profiling import span
 
 N_STAGES = qp.N_STAGES
 MAX_N = 8  # variables per problem the kernel is instantiated for (1..8)
-# Launch shape (csrc/qp_admm_kernel.cu): a group of lanes per problem,
-# THREADS-thread blocks of THREADS / group problems.
+# Launch shape (csrc/qp_admm_kernel.cu): one lane or a group of lanes per
+# problem, THREADS-thread blocks of THREADS / group problems.
 THREADS = 128
-MIN_GROUP, MAX_GROUP = 8, 32  # lanes per problem
-MAX_REG_ROWS = 8  # rows a lane holds in registers; past that, in global memory
+MIN_GROUP, MAX_GROUP = 8, 32  # lanes per problem in a group
+MAX_REG_ROWS = 8  # rows a lane of a group holds in registers; past that, in global memory
+LANE_WORDS = 92  # registers a problem's state may take in the one-lane shape
+LANE_MIN_N, LANE_MAX_N = 2, 3  # variables of the one-lane shape (those measured)
+LANE_MIN_ROWS = 7  # and its least rows
+LANE_MIN_LANES = 2**18  # a group's lanes (B x G) from which one lane a problem wins
 # Problems a launch takes: the kernel's B and its block and problem indices
 # are 32-bit ints (per-problem offsets are size_t), and the block count
 # rounds B up to whole blocks.
 MAX_BATCH = 2**31 - THREADS
 
-# Kernel launches made by ``solve_qp_batch`` (CPU calls do not count).
+# Kernel launches made by ``solve_qp_batch`` (CPU calls do not count), and
+# those of them in the one-lane shape.
 LAUNCH_COUNT = 0
-graphs.count_launches(__name__)
+LANE_LAUNCH_COUNT = 0
+graphs.count_launches(__name__, also=("LANE_LAUNCH_COUNT",))
 
 
 def _f32(v) -> float:
@@ -54,14 +71,25 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
-def launch_shape(m: int) -> tuple[int, int]:
-    """``(G, R)`` for ``m`` rows: G lanes per problem, the least power of two
-    >= m within [MIN_GROUP, MAX_GROUP], and R row slots a lane holds in
-    registers, the least power of two with R G >= m (0 past MAX_REG_ROWS:
-    the rows stay in global memory).  The kernel's ``qp_admm_shape``."""
+def launch_shape(B: int, n: int, m: int) -> tuple[int, int]:
+    """``(G, R)`` for ``B`` problems of ``n`` variables and ``m`` rows: G
+    lanes per problem and R row slots a lane holds in registers.  The
+    group's width is the least power of two >= m within [MIN_GROUP,
+    MAX_GROUP].  One lane (G = 1) where n is from LANE_MIN_N to LANE_MAX_N,
+    m at least LANE_MIN_ROWS, the state, m rounded up to even times n + 4,
+    plus n^2 + n (n + 1), at most LANE_WORDS, and B times the group's width
+    at least LANE_MIN_LANES, with R that rounded m; else
+    the group, with R the least power of two with R G >= m (0 past
+    MAX_REG_ROWS: the rows stay in global memory).  The kernel's
+    ``qp_admm_shape``."""
     g = MIN_GROUP
     while g < MAX_GROUP and g < m:
         g *= 2
+    slots = m + m % 2
+    fits = (LANE_MIN_N <= n <= LANE_MAX_N and m >= LANE_MIN_ROWS
+            and slots * (n + 4) + n * n + n * (n + 1) <= LANE_WORDS)
+    if fits and B >= LANE_MIN_LANES // g:
+        return 1, slots
     r = 1
     while r * g < m:
         r *= 2
@@ -115,7 +143,6 @@ def _sweep_cuda(P, q, A, lo, hi, iters, rho0, sigma, alpha):
     The kernel reads the (B, ...) tensors in place; ``qp.equilibrate``'s
     are contiguous, so nothing is copied.
     """
-    global LAUNCH_COUNT
     from safe_control_tpu_torch import _build
 
     B, m, n = A.shape
@@ -135,8 +162,18 @@ def _sweep_cuda(P, q, A, lo, hi, iters, rho0, sigma, alpha):
         )
     if err != 0:
         raise RuntimeError(f"qp_admm_kernel launch failed: CUDA error {err}")
-    LAUNCH_COUNT += 1
+    _count_launch(B, n, m)
     return x, y
+
+
+def _count_launch(B: int, n: int, m: int) -> None:
+    """Count a launch of ``B`` problems of ``n`` variables and ``m`` rows: in
+    ``LAUNCH_COUNT``, and in ``LANE_LAUNCH_COUNT`` where it runs one lane a
+    problem."""
+    global LAUNCH_COUNT, LANE_LAUNCH_COUNT
+    LAUNCH_COUNT += 1
+    if launch_shape(B, n, m)[0] == 1:
+        LANE_LAUNCH_COUNT += 1
 
 
 def solve_qp_batch_reference(P, q, A, l, u, iters: int = 1600, rho: float = 1.0,

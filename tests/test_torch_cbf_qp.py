@@ -249,7 +249,7 @@ def test_manipulator_cbf_qp_on_card_matches_plain_version(monkeypatch):
     kern = cbf_qp.solve_batch(MANIPULATOR_2D, ts, x, u_ref, obs, DT, backend="pallas")
     torch.cuda.synchronize()
     assert qpk.LAUNCH_COUNT == before + 1
-    assert qpk.launch_shape(118)[0] == 32
+    assert qpk.launch_shape(x.shape[0], 3, 118)[0] == 32
     monkeypatch.setattr(qpk, "solve_qp_batch", qpk.solve_qp_batch_reference)
     plain = cbf_qp.solve_batch(MANIPULATOR_2D, ts, x, u_ref, obs, DT, backend="pallas")
     assert (kern.u - plain.u).abs().max().item() < 2e-3

@@ -15,6 +15,7 @@ check the kernel.  On a machine without JAX run those with
 """
 
 import ctypes
+import json
 import re
 import shutil
 from pathlib import Path
@@ -162,12 +163,31 @@ def test_cuda_source_constants_match_module():
     assert int(consts["N_STAGES"]) == qpk.N_STAGES == 8
     assert int(consts["MAX_N"]) == qpk.MAX_N
     # the launch shape: groups of 8 to 32 lanes tile whole warps and blocks
-    for name in ("THREADS", "MIN_GROUP", "MAX_GROUP", "MAX_REG_ROWS"):
+    for name in ("THREADS", "MIN_GROUP", "MAX_GROUP", "MAX_REG_ROWS", "LANE_WORDS",
+                 "LANE_MIN_LANES", "LANE_MIN_N", "LANE_MAX_N", "LANE_MIN_ROWS"):
         assert int(consts[name]) == getattr(qpk, name), name
     assert qpk.THREADS % 32 == 0 and 32 % qpk.MIN_GROUP == 0 and qpk.MAX_GROUP == 32
-    assert qpk.launch_shape(7) == (8, 1)  # the CBF-QP path: four problems a warp
-    assert qpk.launch_shape(153) == (32, 8)  # Manipulator2D scale: a warp, rows in registers
-    assert qpk.launch_shape(257) == (32, 0)  # past 256 rows: in global memory
+    assert qpk.launch_shape(4096, 2, 7) == (8, 1)  # the CBF-QP path: four problems a warp
+    assert qpk.launch_shape(32767, 2, 7) == (8, 1)
+    assert qpk.launch_shape(32768, 2, 7) == (1, 8)  # from 2^18 lanes: one lane, 8 slots
+    assert qpk.launch_shape(2**19, 2, 10) == (1, 10)  # the DPCBF sweep: no slot past m
+    assert qpk.launch_shape(16383, 2, 10) == (16, 1)
+    assert qpk.launch_shape(16384, 2, 10) == (1, 10)
+    assert qpk.launch_shape(1365, 2, 10) == (16, 1)  # anchor 5's groups
+    assert qpk.launch_shape(4096, 2, 12) == (16, 1)  # the DI fleet
+    assert qpk.launch_shape(2**19, 2, 12) == (1, 12)  # the widest n=2 in one lane
+    assert qpk.launch_shape(2**19, 2, 13) == (16, 1)  # past it, a group at any batch
+    assert qpk.launch_shape(2**19, 3, 10) == (1, 10)  # the widest n=3 in one lane
+    assert qpk.launch_shape(2**19, 3, 11) == (16, 1)
+    assert qpk.launch_shape(2**19, 3, 8) == (1, 8)
+    assert qpk.launch_shape(2**19, 2, 6) == (8, 1)  # below 7 rows: groups, as not measured
+    for n in (1, 4, 5):  # n outside 2-3: groups at any batch, as not measured
+        assert qpk.launch_shape(2**19, n, 8) == (8, 1)
+    for n in range(6, qpk.MAX_N + 1):  # P, L and A'A alone leave no room for rows
+        assert qpk.launch_shape(2**19, n, 7) == (8, 1)
+    assert qpk.launch_shape(4096, 3, 153) == (32, 8)  # Manipulator2D: a warp, rows in registers
+    assert qpk.launch_shape(2**19, 3, 153) == (32, 8)
+    assert qpk.launch_shape(4096, 2, 257) == (32, 0)  # past 256 rows: in global memory
     for n in range(1, qpk.MAX_N + 1):  # every n the wrapper accepts is instantiated
         assert f"case {n}: QP_N({n})" in text or f"default: QP_N({n})" in text
 
@@ -186,10 +206,16 @@ def cpu_lib(tmp_path_factory):
 
 
 def test_launch_shape_matches_cuda_source(cpu_lib):
+    """The C ``qp_admm_shape`` and ``launch_shape`` over every input the rule
+    reads: n, m and B on both sides of each group width's threshold."""
     g, r = ctypes.c_int(), ctypes.c_int()
-    for m in range(1, 600):
-        cpu_lib.qp_admm_shape(m, ctypes.byref(g), ctypes.byref(r))
-        assert (g.value, r.value) == qpk.launch_shape(m), m
+    batches = sorted({1, 4096, qpk.MAX_BATCH, 2**19}
+                     | {qpk.LANE_MIN_LANES // w + d for w in (8, 16, 32) for d in (-1, 0, 1)})
+    for B in batches:
+        for n in range(1, qpk.MAX_N + 1):
+            for m in range(1, 600):
+                cpu_lib.qp_admm_shape(B, n, m, ctypes.byref(g), ctypes.byref(r))
+                assert (g.value, r.value) == qpk.launch_shape(B, n, m), (B, n, m)
 
 
 @pytest.mark.parametrize("batch,n,m,iters", [
@@ -198,20 +224,36 @@ def test_launch_shape_matches_cuda_source(cpu_lib):
     (9, 2, 5, 200),    # m not a multiple of G: 3 idle lanes a group
     (5, 4, 40, 40),    # G = 32, the second slot partly filled
     (2, 2, 300, 8),    # past 256 rows: a lane's rows in global memory
+    (16384, 2, 10, 400),  # the DPCBF sweep's QPs, one lane a problem: 128 full blocks
+    (16387, 2, 10, 400),  # ... and a ragged last block of 3 lanes
+    (9, 2, 10, 400),   # ... and below the batch of one lane: G = 16, 6 idle lanes a group
+    (16384, 2, 12, 100),  # the DI fleet's m in one lane: the widest at n=2
+    (32768, 2, 1, 16),  # one row, below the one-lane shape's rows: G = 8
+    (32769, 2, 7, 16),  # m odd in one lane, a ragged last block of 1 lane
+    (16384, 2, 11, 8),  # the widest n=2 slots with the last empty
+    (16384, 3, 10, 8),  # the widest n=3 in one lane
+    (32768, 3, 8, 8),   # n=3 in 8 slots, all full
+    (32769, 3, 7, 8),   # ... and m odd, a ragged last block of 1 lane
 ])
 def test_cuda_source_on_the_cpu_matches_plain_version(cpu_lib, monkeypatch, batch, n, m, iters):
     """The kernel's CUDA source, built for the CPU under the warp emulation
     (no FMA contraction, as ``-fmad=false`` on the card), against the plain
     sweep ``_sweep_plain`` on the same equilibrated problems: bit for bit,
     since the kernel uses only +, -, *, /, sqrtf and min/max and takes every
-    sum over rows in index order by shuffle.  The plain version gets the
-    correctly rounded square root that ``sqrtf`` and the card's
-    ``torch.sqrt`` compute: PyTorch's float32 CPU ``torch.sqrt`` (its
-    AVX-512 kernel) is not always (2.0936923 gives 1.4469596, IEEE
+    sum over rows in index order, in one lane by a loop and in a group by
+    shuffle.  The shapes of ``launch_shape`` each: one lane (full and
+    ragged blocks, m odd and even, each instantiation at n=2 and 3) and groups of
+    8, 16 and 32, rows in registers and in global memory.  The plain
+    version gets the correctly rounded square root that ``sqrtf`` and the
+    card's ``torch.sqrt`` compute: PyTorch's float32 CPU ``torch.sqrt``
+    (its AVX-512 kernel) is not always (2.0936923 gives 1.4469596, IEEE
     1.4469597), which moves the rho of 1 of the 9 problems at n=2, m=7."""
     monkeypatch.setattr(torch, "sqrt", cuda_on_cpu.ieee_sqrt)
-    qps = cbf_qps(batch) if (n, m) == (2, 7) else random_qps(m, batch, n, m)
-    s = tqp.equilibrate(*interop.qp_from_numpy(*qps))
+    if (n, m) in ((2, 10), (2, 12)):
+        s = tqp.equilibrate(*sweep_scale_qps(batch, m - 2, seed=batch))
+    else:
+        qps = cbf_qps(batch) if (n, m) == (2, 7) else random_qps(m, batch, n, m)
+        s = tqp.equilibrate(*interop.qp_from_numpy(*qps))
     x = torch.full((batch, n), float("nan"))
     z = torch.full((batch, m), float("nan"))
     y = torch.full((batch, m), float("nan"))
@@ -224,15 +266,41 @@ def test_cuda_source_on_the_cpu_matches_plain_version(cpu_lib, monkeypatch, batc
     assert torch.equal(x, x_p) and torch.equal(y, y_p)
 
 
+def test_lane_launch_count_is_registered_and_traced(tmp_path, monkeypatch):
+    """``LANE_LAUNCH_COUNT`` is registered beside ``LAUNCH_COUNT``, so that
+    captures keep it and ``trace_to`` reports its rise in ``port_counters``;
+    a launch adds one to it where the launch shape is one lane."""
+    from safe_control_tpu_torch.core import graphs
+    from safe_control_tpu_torch.utils import profiling
+
+    assert graphs.COUNTERS[qpk.__name__] == ("LAUNCH_COUNT", "LANE_LAUNCH_COUNT")
+    monkeypatch.setattr(qpk, "LAUNCH_COUNT", 0)
+    monkeypatch.setattr(qpk, "LANE_LAUNCH_COUNT", 0)
+    with profiling.trace_to(str(tmp_path / "trace")):
+        for B, n, m in ((2**19, 2, 10), (2**19, 2, 10), (32768, 2, 7), (4096, 2, 7),
+                        (2**19, 3, 118)):  # three in one lane, one in groups, one in a warp
+            qpk._count_launch(B, n, m)
+    counters = json.loads((tmp_path / "trace" / "trace.json").read_text())["port_counters"]
+    assert counters[f"{qpk.__name__}.LAUNCH_COUNT"] == 5
+    assert counters[f"{qpk.__name__}.LANE_LAUNCH_COUNT"] == 3
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch,m", [(1, 7), (17, 7), (64, 7), (4097, 7), (256, 153)])
+@pytest.mark.parametrize("batch,m", [(1, 7), (17, 7), (64, 7), (4097, 7), (256, 153),
+                                     (4097, 10), (131, 12), (32769, 7), (16387, 10),
+                                     (16513, 12)])
 def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch, batch, m):
     """On a card: the kernel against its plain version on the same inputs,
     the CBF-QP path's shape with a lone group, a partly filled warp and a
-    ragged block, and the Manipulator2D scale (feasible QPs, 300
-    iterations); the CUDA path never runs the plain sweep."""
+    ragged block, the sweep's (m=10) and the DI fleet's (m=12) QPs on
+    ragged blocks, in groups and (from 32,768 and 16,384 problems) one lane
+    a problem, and the Manipulator2D scale (feasible QPs, 300 iterations);
+    the CUDA path never runs the plain sweep."""
     if m == 7:
         qps, iters, tol = cbf_qps(batch), 1600, 1e-3
+    elif m in (10, 12):
+        qps = [t.numpy() for t in sweep_scale_qps(batch, m - 2, seed=batch)]
+        iters, tol = (400 if m == 10 else 1600), 1e-3
     else:
         P, q, A, l, u = random_qps(7, batch, 3, m, one_sided=100)
         Ax = np.einsum("bmn,bn->bm", A, np.random.default_rng(8).normal(size=(batch, 3)))
@@ -251,7 +319,7 @@ def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch, batch, m
     kern = qpk.solve_qp_batch(*ins, iters=iters)
     torch.cuda.synchronize()
     assert qpk.LAUNCH_COUNT == before + 1
-    if m == 7:
+    if m < 100:
         assert (kern.x - plain.x).abs().max().item() < tol
         assert torch.equal(kern.prim_res < 1e-3, plain.prim_res < 1e-3)
     else:
@@ -294,20 +362,22 @@ def sweep_scale_qps(B, k, seed):
 @pytest.mark.gpu
 def test_kernel_at_the_sweep_scale_matches_plain_version_bit_for_bit(cuda_device):
     """B2 at the DPCBF sweep's scale: B = 2^19, n=2, m=10 (8 CBF rows and
-    the box), 400 iterations, 65,536 blocks of 8 problems.  Its x and y on
-    a seeded sample of problems, the first and the last block's among them,
-    against the plain sweep on those problems alone: bit for bit."""
+    the box), 400 iterations, one lane a problem: 4,096 blocks of 128
+    problems.  Its x and y on a seeded sample of problems, the first and
+    the last block's among them, against the plain sweep on those problems
+    alone: bit for bit.  The launch counts in ``LANE_LAUNCH_COUNT`` too."""
     B, k, iters = 2**19, 8, 400
-    assert qpk.launch_shape(k + 2) == (16, 1)
+    G, R = qpk.launch_shape(B, 2, k + 2)
+    assert (G, R) == (1, 10)
     ins = [t.to(cuda_device) for t in sweep_scale_qps(B, k, seed=2**31 + 19)]
     s = tqp.equilibrate(*ins)
     args = (iters, 1.0, 1e-6, 1.6)
-    before = qpk.LAUNCH_COUNT
+    before = (qpk.LAUNCH_COUNT, qpk.LANE_LAUNCH_COUNT)
     x, y = qpk._sweep_cuda(s.P, s.q, s.A, s.l, s.u, *args)
     torch.cuda.synchronize()
-    assert qpk.LAUNCH_COUNT == before + 1
+    assert (qpk.LAUNCH_COUNT, qpk.LANE_LAUNCH_COUNT) == (before[0] + 1, before[1] + 1)
     assert torch.isfinite(x).all() and torch.isfinite(y).all()
-    per_block = qpk.THREADS // 16
+    per_block = qpk.THREADS // G
     rng = np.random.default_rng(2**31 + 29)
     rows = sorted(set(rng.choice(B, 4096, replace=False).tolist())
                   | set(range(per_block)) | set(range(B - per_block, B)))
