@@ -281,6 +281,9 @@ import time
 
 import torch
 
+from portbench import roofline
+from portbench.roofline import FP32_PEAK, HBM_RATE, b2_bytes, b2_flops, b3_bytes, b3_flops
+
 DEVICE = "cuda"
 BATCH = 4096
 STEPS = 5
@@ -432,12 +435,6 @@ class ActiveRows(torch.overrides.TorchFunctionMode):
         return int(torch.stack(self.counts).sum()) if self.counts else 0
 
 
-# The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
-# 700 W): float32 outside the tensor cores, and HBM3.  Operations count each
-# add, subtract, multiply, divide, square root, floor, sine, cosine and power
-# once; comparisons, min/max, abs and negation are free.
-FP32_PEAK = 67e12
-HBM_RATE = 3.35e12
 # Operations of one Quad3D RK4 step (mpc_fused_models.h::Quad3D::step): the
 # allocation 28, four derivatives 8, three stage states 72, the update 84,
 # three angle wraps 15.
@@ -462,9 +459,9 @@ DRIFT_B3_OPS = {"DynamicBicycle2D": (104, 8), "DriftingCar": (120, 6)}
 
 
 def bound(flops, nbytes):
-    """(least milliseconds, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    """(least milliseconds, "operations" or "bytes"): ``roofline.bound_s``."""
+    seconds, by = roofline.bound_s(flops, nbytes)
+    return seconds * 1e3, by
 
 
 def cbf_qp_data(x, gl, ob):
@@ -501,64 +498,10 @@ def wide_qps(dev, batch=256, n=3, m=153):
 
 
 def b1_flops(obs, active_rows):
-    """Operations of B1's solve on these problems, counted from its code
-    (N=8, K=5, M=16, 8x3 budget), with H as its lower triangle and the
-    rho Jc'Jc update only for the ``active_rows`` the Newton steps met."""
-    N, K, M, NR, NC, steps = 8, 5, 16, 48, 56, 24
+    """Operations of B1's solve on the problems of ``obs`` (B, K, 7), whose
+    slots of flag < 0.5 hold circles (``roofline.b1_flops``)."""
     circles = int((obs[..., 6] < 0.5).sum())
-    supers = obs.shape[0] * K - circles
-    hv = (6 * circles + 14 * supers) / obs.shape[0]  # barrier values, per problem
-    hg = (2 * circles + 16 * supers) / obs.shape[0]  # their position gradients
-    # per stage: dynamics 25, state rows 8, v rows 2, CBF rows 8 each
-    values = hv + N * (25 + 8 + 2 + 2 * hv + 8 * K) + 2 * M
-    # tangents: TX, TY, TX2, TY2 (5 a column each) and the CBF Jacobian rows
-    tangents = N * (326 + 2 * hg + 224 * K)
-    tri = M * (M + 1) // 2
-    newton = (values + tangents + (NR - M) * (2 + 4 * M + 2 * tri) + M * 2
-              + NC * (5 + 3 * M)                  # activations, rs, grad
-              + 48 + 34 + M + 3 * tri + 4 * M     # input-move grad, damping, Hf
-              + sum(i * (i + 1) for i in range(M)) + tri   # Cholesky
-              + 2 * (M * M)                       # the two substitutions
-              + M * (2 * M - 1) + 4 * M + 6       # predicted decrease
-              + 6 * (values + 4 * NR + 7 * NC + 3) + 12 * M + 2 * M)  # line search, update
-    per_problem = (values + tangents + NC * 34 + steps * newton + 8 * (values + 3 * NC)
-                   + values + NC)
-    return obs.shape[0] * per_problem + active_rows * (M + 2 * tri)
-
-
-def b2_flops(B, n, m, iters, stages=8):
-    """Operations of B2's staged ADMM on B problems, counted from its code."""
-    tri = n * (n + 1) // 2
-    sweep = 5 * n + 2 * n * n + m * (4 * n + 9)
-    stage = 3 * tri + n + sum(i * (i + 1) for i in range(n)) + n * n + m * 4 * n + 3
-    return B * (iters * sweep + stages * stage + m * 2 * tri)
-
-
-def b3_flops(B, n, m, N, K, NC, step_ops, active_rows, h_ops=6, rel_deg=1, outer=8, newton=3):
-    """Operations of B3's solve for a model of ``step_ops`` operations a
-    ``step`` and ``h_ops`` a barrier value (6: a circle), from its code, at
-    ``outer`` x ``newton`` iterations.  A dual-number operation is counted
-    as two (a value and a tangent: the Quad3D step multiplies duals by
-    constants only).  Relative degree 2 adds a step and K barrier values a
-    stage, and 6 operations a CBF row."""
-    M, NR, steps = N * m, N * (n + m), outer * newton
-    tri = M * (M + 1) // 2
-    stage = rel_deg * (step_ops + K * h_ops) + 2 * n + (3 if rel_deg == 1 else 9) * K
-    rollout = K * h_ops + N * (stage + 2 * (NC - N * K) // (2 * N)) + 2 * N * m
-    newton_ops = (M * (2 * rollout + NC) + 2 * M * (NR + NC) + 2 * tri * NR + 2 * M + 3 * tri
-              + sum(i * (i + 1) for i in range(M)) + tri + 2 * M * M + 2 * M * M
-              + 6 * (rollout + 4 * NR + 7 * NC) + 12 * M)
-    per_problem = (M * 2 * rollout + NC * 2 * M + steps * newton_ops
-                   + outer * (rollout + 3 * NC) + rollout + NC)
-    return B * per_problem + active_rows * 2 * tri
-
-
-def b3_bytes(B, n, m, N, K):
-    """Bytes B3 must move for B problems: x0, goal, obstacles, u_prev and the
-    warm start read once, U, the rollout and viol written once (its global
-    workspace is the kernel's own, and not counted)."""
-    M = N * m
-    return B * (2 * n + 7 * K + m + M + M + (N + 1) * n + 1) * 4
+    return roofline.b1_flops(circles, obs.shape[0] * obs.shape[1], obs.shape[0], active_rows)
 
 
 def passes_waypoints(path):
@@ -759,8 +702,7 @@ def fleet(dev, card, pos_controller, n_steps):
     bound_note = ""
     if qp:  # B2 at this path's shape: n=2, m = the constraint slots + the input box
         qn, qm = 2, cfg.num_obs + 2
-        b2_bound, b2_by = bound(b2_flops(FLEET, qn, qm, cfg.qp_iters),
-                                FLEET * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+        b2_bound, b2_by = bound(b2_flops(FLEET, qn, qm, cfg.qp_iters), b2_bytes(FLEET, qn, qm))
         bound_note = (f" (n={qn}, m={qm}: bound {b2_bound:.4f} ms by {b2_by}, "
                       f"{100 * b2_bound / kernel_ms:.2f}% of it reached)")
     print(f"phase 15 [{card}] fleet, {label}: tracking.run of {n_steps} steps at B={FLEET}, "
@@ -1013,8 +955,7 @@ def dynamic_env(dev, card):
     infeasible = (final.ret == tracking.RET_INFEASIBLE).float().mean().item()
     step_ms = wall / DYN_STEPS * 1e3
     qn, qm = 2, cfg.num_obs + 2  # B2 at this path's shape
-    b2_bound, b2_by = bound(b2_flops(FLEET, qn, qm, cfg.qp_iters),
-                            FLEET * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+    b2_bound, b2_by = bound(b2_flops(FLEET, qn, qm, cfg.qp_iters), b2_bytes(FLEET, qn, qm))
     print(f"phase 17 [{card}] fleet, {model} cbf_qp among 8 moving obstacles: "
           f"tracking.run_dynamic of {DYN_STEPS} steps at B={FLEET}, QP kernel launches "
           f"{launches}; {FLEET * DYN_STEPS / wall:.1f} robot-steps/s, {step_ms:.3f} ms a step, "
@@ -1068,7 +1009,7 @@ def manipulator_cbf_qp(dev, card):
     run()
     ms = sync_time(run, 5)
     ops = b2_flops(BATCH, n, m, 1600)
-    bnd, by = bound(ops, BATCH * (n * n + 2 * n + m * n + 4 * m) * 4)
+    bnd, by = bound(ops, b2_bytes(BATCH, n, m))
     print(f"phase 18 [{card}] Manipulator2D CBF-QP through cbf_qp.solve_batch at B={BATCH} "
           f"(n={n}, m={m}: {b2_shape(BATCH, n, m)}): QP kernel launches "
           f"{launches}, vs plain max|dx| {dx:.3e}, feasible flags equal {feas_same} "
@@ -1339,7 +1280,7 @@ def monte_carlo_sweep(dev, card):
     step_ms = wall / SWEEP_STEPS * 1e3
     qn, qm = 2, cfg.num_obs + 2
     b2_bound, b2_by = bound(b2_flops(SWEEP_BATCH, qn, qm, cfg.qp_iters),
-                            SWEEP_BATCH * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+                            b2_bytes(SWEEP_BATCH, qn, qm))
     print(f"phase 21 [{card}] Monte Carlo DPCBF sweep, {SWEEP_BATCH} scenarios x {SWEEP_STEPS} "
           f"steps (parallel.monte_carlo.run_sweep_chunk): QP kernel launches {launches} "
           f"({launches / SWEEP_STEPS:.3f} a step); success {100 * succ:.2f}%, collision "
@@ -1407,8 +1348,7 @@ def sweep_scale_b2(dev, card):
     dx = (x[idx] - x_p).abs().max().item()
     dy = (y[idx] - y_p).abs().max().item()
     ms = sync_time(lambda: sweep_cuda(*scaled, *args), 10)
-    b2_bound, b2_by = bound(b2_flops(B, qn, qm, args[0]),
-                            B * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+    b2_bound, b2_by = bound(b2_flops(B, qn, qm, args[0]), b2_bytes(B, qn, qm))
     shape = b2_shape(B, qn, qm)
     print(f"phase 21b [{card}] B2 at the DPCBF sweep's benchmark scale: the QPs of the first "
           f"step of {B} scenarios (n={qn}, m={qm}, {args[0]} iterations), {shape}, "
@@ -1760,7 +1700,7 @@ def heterogeneous_fleet(dev, card):
             lambda i, gi=gi: (wps[gi], n_wps[gi], obs_chunks[i // chunk][gi]), True)
         qn, qm = 2, g.cfg.num_obs + 2
         b2_bound, b2_by = bound(b2_flops(g.count, qn, qm, g.cfg.qp_iters),
-                                g.count * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+                                b2_bytes(g.count, qn, qm))
         per_group.append(dict(model=g.cfg.model_name, B=g.count, n=qn, m=qm, ms=kernel_ms,
                               bound_ms=b2_bound, bound_by=b2_by, same_x=same_x,
                               max_abs_err=max(dev_plain)))
@@ -2936,7 +2876,7 @@ def main() -> None:
     cstep_ms_g = sync_time(cstep_general, 1)
     qn, qm = qp_data[0].shape[-1], qp_data[2].shape[-2]
     b2_ops = b2_flops(BATCH, qn, qm, 1600)
-    b2_bound, b2_by = bound(b2_ops, BATCH * (qn * qn + 2 * qn + qm * qn + 4 * qm) * 4)
+    b2_bound, b2_by = bound(b2_ops, b2_bytes(BATCH, qn, qm))
     print(f"phase 8 [{card}] B={BATCH}: QP kernel {b2_ops:.4e} operations (n={qn}, m={qm}, "
           f"1600 iterations), bound {b2_bound:.4f} ms by {b2_by}, "
           f"{100 * b2_bound / sweep_ms[BATCH]:.2f}% "

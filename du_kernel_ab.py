@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with a CUDA card:
 point (``mpc_du_launch``) and its ``mpc_du_kernel.h``, for example an earlier
 commit's ``safe_control_tpu_torch/csrc`` unpacked with ``git archive`` into
 the ignored ``build/`` directory.  The script builds the package's kernel
-(``csrc/mpc_du_kernel.cu``) and the other one with the same nvcc flags and
-prints each one's ptxas report.  On the main path's inputs
+(``csrc/mpc_du_kernel.cu``) and the other one through ``_build`` (each
+library named by its tree's sources) and prints each one's library and
+ptxas report.  On the main path's inputs
 (``entry.build_step``, cold start and the warm start one step later) it
 checks, at B = 1, 17, 4096 and 4097, that the two builds give the same bits
 and that the package's kernel agrees with its plain PyTorch version within
@@ -22,7 +23,6 @@ check fails or there is no card.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
@@ -49,18 +49,14 @@ def main() -> None:
 
     # ---- build both ----------------------------------------------------------
     this = _build.load_mpc_du_kernel()
-    print(f"this build: {_build.BUILD_INFO['mpc_du_kernel']['seconds']:.1f} s; "
-          f"ptxas: {ptxas_summary(_build.BUILD_INFO['mpc_du_kernel']['ptxas'])}")
-    other_dir = Path(sys.argv[1]).resolve()
-    out = _build.BUILD_DIR / "ab" / "libmpc_du_kernel_other.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(other_dir), "-o",
-                           str(out), str(other_dir / "mpc_du_kernel.cu")],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise SystemExit(f"nvcc failed on {other_dir}:\n{proc.stdout}\n{proc.stderr}")
-    print(f"other build ({other_dir}): ptxas: {ptxas_summary(proc.stdout + proc.stderr)}")
-    other = ctypes.CDLL(str(out))
+    info = _build.BUILD_INFO["mpc_du_kernel"]
+    print(f"this build ({info['path']}): {info['seconds']:.1f} s; "
+          f"ptxas: {ptxas_summary(info['ptxas'])}")
+    other_src = Path(sys.argv[1]).resolve() / "mpc_du_kernel.cu"
+    info = _build.build_sources([other_src])[other_src]
+    print(f"other build ({info['path']}): {info['seconds']:.1f} s; "
+          f"ptxas: {ptxas_summary(info['ptxas'])}")
+    other = ctypes.CDLL(info["path"])
     other.mpc_du_launch.argtypes = this.mpc_du_launch.argtypes
     other.mpc_du_launch.restype = ctypes.c_int
 

@@ -11,8 +11,9 @@ with ``git archive`` into the ignored ``build/`` directory, or a copy of
 this one with another launch shape or a part of the Newton step changed.
 
 The script builds the package's kernel (``csrc/mpc_fused_kernel.cu``) and
-the other one with the same nvcc flags, both at once, and prints each
-build's ptxas report per instantiation, and its threads a block, shared
+the other one through ``_build`` (each library named by its tree's
+sources), both at once, and prints each build's library and its ptxas
+report per instantiation, and its threads a block, shared
 bytes and blocks an SM (the CUDA occupancy calculator) at Quad3D N=10,
 VTOL2D N=16 and each model of M <= 32 at N=10 (this build runs those in
 one warp).  It compares the two builds' SASS (``cuobjdump -sass``) of each
@@ -95,31 +96,6 @@ extern "C" int ab_blocks_per_sm(int model, int threads, int bytes) {
 """
 
 
-def build_all(jobs):
-    """``jobs``: name -> source (headers beside it).  One nvcc each, all
-    started together; name -> (library, ptxas report)."""
-    from safe_control_tpu_torch import _build
-
-    out_dir = _build.BUILD_DIR / "ab"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    running = {}
-    for name, source in jobs.items():
-        lib = out_dir / f"libmpc_fused_{name}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(source.parent), "-o", str(lib),
-               str(source)]
-        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                          text=True), lib)
-    built = {}
-    for name, (proc, lib) in running.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed on {name}:\n{stdout}\n{stderr}")
-        cdll = ctypes.CDLL(str(lib))
-        cdll.path = lib
-        built[name] = (cdll, stdout + stderr)
-    return built
-
-
 def sass(lib_path) -> dict:
     """``chip_smoke.fused_instantiation`` of each fused kernel in the
     library -> its SASS lines (``cuobjdump -sass``, beside nvcc)."""
@@ -177,10 +153,14 @@ def main() -> None:
     other_src = copy / "mpc_fused_kernel.cu"
     if "mpc_fused_blocks_per_sm" not in other_src.read_text():
         other_src.write_text(other_src.read_text() + OCCUPANCY_SHIM)
-    jobs = {"this": csrc / "mpc_fused_kernel.cu", "other": other_src,
-            "clock": csrc / "mpc_fused_clock.cu"}
-    built = build_all(jobs)
-    for lib, _ in built.values():
+    sources = {"this": csrc / "mpc_fused_kernel.cu", "other": other_src,
+               "clock": csrc / "mpc_fused_clock.cu"}
+    infos = _build.build_sources(sources.values())  # one nvcc each, all started together
+    built = {}
+    for name, source in sources.items():
+        lib = ctypes.CDLL(infos[source]["path"])
+        lib.path = infos[source]["path"]
+        built[name] = (lib, infos[source]["ptxas"])
         lib.wide = hasattr(lib, "mpc_fused_workspace_floats")  # the launch takes a workspace
         lib.traced = hasattr(lib, "mpc_fused_trace_fields")  # and the phase clock's buffer
         lib.mpc_fused_launch.argtypes = (
@@ -236,9 +216,9 @@ def main() -> None:
                     per_sm = lib.ab_blocks_per_sm(shape[0], threads, smem)
                 occ.append(f"{model} N={cf.horizon}: {threads} threads, {smem} bytes "
                            f"shared, {per_sm} blocks an SM")
-            print(f"build {name} ({jobs[name]}): " + "; ".join(occ)
+            print(f"build {name} ({lib.path}): " + "; ".join(occ)
                   + f"; ptxas: {ptxas_line(report)}")
-    print(f"build clock ({jobs['clock']}): ptxas: {ptxas_line(clock_report, clock=True)}")
+    print(f"build clock ({clock_lib.path}): ptxas: {ptxas_line(clock_report, clock=True)}")
     this_sass, other_sass = sass(built["this"][0].path), sass(built["other"][0].path)
     both = sorted(set(this_sass) & set(other_sass))
     differ = [k for k in both if this_sass[k] != other_sass[k]]

@@ -11,7 +11,8 @@ ignored ``build/`` directory.  A build without ``qp_admm_shape`` is taken to
 be the first port's, which reads and writes a (rows, B) layout: its inputs
 are transposed for it, outside the timed launch, and its outputs back.  The
 script builds the package's kernel (``csrc/qp_admm_kernel.cu``) and the
-other one with the same nvcc flags and prints their ptxas reports for the
+other one through ``_build`` (each library named by its tree's sources)
+and prints their libraries and their ptxas reports for the
 instantiations the shapes below launch, and for the group shape of each
 (the only shape of a build before the one-lane one).
 
@@ -35,8 +36,6 @@ launch shape.  Exits non-zero when a check fails or there is no card.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import subprocess
 import sys
 from pathlib import Path
 
@@ -100,25 +99,6 @@ def kernel_names(shapes) -> set:
         for b in (B, 1):
             names.add("qp_admm_kernel<%d,%d,%d>" % (n, *qpk.launch_shape(b, n, m)))
     return names
-
-
-def build_other(other_dir: Path) -> tuple:
-    """The other build's library and its ptxas report."""
-    from safe_control_tpu_torch import _build
-
-    # one library a directory: a second dlopen of one path returns the first
-    tag = hashlib.sha256(str(other_dir).encode()).hexdigest()[:12]
-    out = _build.BUILD_DIR / "ab" / f"libqp_admm_kernel_other-{tag}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(other_dir), "-o",
-                           str(out), str(other_dir / "qp_admm_kernel.cu")],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise SystemExit(f"nvcc failed on {other_dir}:\n{proc.stdout}\n{proc.stderr}")
-    other = ctypes.CDLL(str(out))
-    other.qp_admm_launch.argtypes = _build.load_qp_admm_kernel().qp_admm_launch.argtypes
-    other.qp_admm_launch.restype = ctypes.c_int
-    return other, proc.stdout + proc.stderr
 
 
 def launcher(lib, scaled, iters, transpose):
@@ -221,11 +201,16 @@ def main() -> None:
     # ---- build both ----------------------------------------------------------
     this = _build.load_qp_admm_kernel()
     keep = kernel_names({(B, n, m) for n, m, B, _ in SHAPES.values()} | {(256, 3, 153)})
-    print(f"this build: {_build.BUILD_INFO['qp_admm_kernel']['seconds']:.1f} s; ptxas: "
-          f"{ptxas_summary(_build.BUILD_INFO['qp_admm_kernel']['ptxas'], keep)}")
-    other_dir = Path(sys.argv[1]).resolve()
-    other, report = build_other(other_dir)
-    print(f"other build ({other_dir}): ptxas: {ptxas_summary(report, keep)}")
+    info = _build.BUILD_INFO["qp_admm_kernel"]
+    print(f"this build ({info['path']}): {info['seconds']:.1f} s; ptxas: "
+          f"{ptxas_summary(info['ptxas'], keep)}")
+    other_src = Path(sys.argv[1]).resolve() / "qp_admm_kernel.cu"
+    info = _build.build_sources([other_src])[other_src]
+    print(f"other build ({info['path']}): {info['seconds']:.1f} s; ptxas: "
+          f"{ptxas_summary(info['ptxas'], keep)}")
+    other = ctypes.CDLL(info["path"])
+    other.qp_admm_launch.argtypes = this.qp_admm_launch.argtypes
+    other.qp_admm_launch.restype = ctypes.c_int
     rows_layout = not hasattr(other, "qp_admm_shape")
     print(f"other build's layout: {'(rows, B)' if rows_layout else '(B, ...)'}", flush=True)
 

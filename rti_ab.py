@@ -19,6 +19,8 @@ import os
 import subprocess
 import sys
 
+from chip_smoke import card_line
+
 CHILD = r'''
 import json, sys, time
 import torch
@@ -65,15 +67,6 @@ with Count():
 print(json.dumps({"ms": times, "dispatches": Count.n,
                   "u": res.u[0].tolist(), "finite": bool(torch.isfinite(res.state.U).all())}))
 '''
-
-
-def card_line() -> str:
-    try:
-        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              timeout=30).stdout.strip().splitlines()[0]
-    except (OSError, IndexError, subprocess.TimeoutExpired):
-        return "nvidia-smi not available"
 
 
 def run_tree(root: str, device: str) -> dict:

@@ -5,7 +5,8 @@ Each kernel is a ``csrc/*.cu`` file with a plain C entry point, compiled for
 checkout.  The library's file name carries a hash of the sources (the
 ``.cu``, the ``.cu`` files it includes, and every ``csrc/*.h``) and the
 compiler flags, so a changed source builds anew at first use and an
-unchanged one loads from disk.
+unchanged one loads from disk.  ``build_sources`` builds another tree's
+kernels the same way (the A/B scripts at the root of the checkout).
 
 No ``--use_fast_math``: the kernels' numerics assume IEEE ``cosf``,
 ``sinf``, ``powf``, ``sqrtf``, ``floorf`` and division.  ``-fmad=false``
@@ -51,55 +52,75 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _library_path(name: str) -> Path:
-    # Every csrc/*.h enters every kernel's hash, so a changed or new header
+def _library_path(source: Path) -> Path:
+    """The library of ``source``, a ``.cu`` file: named by a hash of the
+    compiler flags, the source, the ``.cu`` files it includes and every
+    ``*.h`` beside it, so that two trees of different sources never share a
+    path (a second ``dlopen`` of a path returns the first library).  The
+    package's ``csrc/`` builds into ``BUILD_DIR``, any other tree into
+    ``BUILD_DIR / "ab"``, so that a tree held against the package's loads
+    its own library even where the sources are the same."""
+    # Every *.h enters every kernel's hash, so a changed or new header
     # rebuilds all kernels once; that costs a build, never a wrong library.
     # (Headers are named *.h for that reason, and so ship as package data.)
-    source = _CSRC / f"{name}.cu"
+    csrc = source.parent
     included = re.findall(r'^#include "(\w+\.cu)"', source.read_text(), flags=re.M)
-    deps = [source] + [_CSRC / f for f in included] + sorted(_CSRC.glob("*.h"))
+    deps = [source] + [csrc / f for f in included] + sorted(csrc.glob("*.h"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in deps:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    out_dir = BUILD_DIR if csrc.resolve() == _CSRC else BUILD_DIR / "ab"
+    return out_dir / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names) -> dict:
-    """Compile ``csrc/<name>.cu`` into ``build/kernels/lib<name>-<hash>.so``
-    for each name, one nvcc process per source, all started together."""
-    outs, running = {}, {}
-    for name in names:
-        out = outs[name] = _library_path(name)
+def build_sources(sources) -> dict:
+    """Compile each ``.cu`` file of ``sources`` (its headers beside it) into
+    its library (see :func:`_library_path`), one nvcc process per source,
+    all started together; a library already on disk is loaded from there.
+    Returns source -> dict(path, seconds, cached, ptxas): the library, the
+    build's seconds (0 from disk), and the compiler's register/spill report
+    (from disk, the report of the build that made it)."""
+    built, running = {}, {}
+    for source in sources:
+        out = _library_path(source)
         if out.exists():
-            if BUILD_INFO.get(name, {}).get("path") != str(out):  # keep this process's build
-                log = out.with_suffix(".log")  # the report of the build that made it
-                BUILD_INFO[name] = dict(path=str(out), seconds=0.0, cached=True,
-                                        ptxas=log.read_text() if log.exists() else "")
+            log = out.with_suffix(".log")
+            built[source] = dict(path=str(out), seconds=0.0, cached=True,
+                                 ptxas=log.read_text() if log.exists() else "")
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        source = _CSRC / f"{name}.cu"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(source.parent), "-o", str(tmp), str(source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        running[name] = (proc, tmp, time.perf_counter())
+        running[source] = (proc, out, tmp, time.perf_counter())
     failures = []
-    for name, (proc, tmp, t0) in running.items():
+    for source, (proc, out, tmp, t0) in running.items():
         stdout, stderr = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            failures.append(f"nvcc failed ({proc.returncode}) building {name}.cu:\n"
+            failures.append(f"nvcc failed ({proc.returncode}) building {source}:\n"
                             f"{stdout}\n{stderr}")
             continue
-        out = outs[name]
         os.replace(tmp, out)
         report = (stdout + stderr).strip()
         out.with_suffix(".log").write_text(report + "\n")
-        BUILD_INFO[name] = dict(path=str(out), seconds=seconds, cached=False, ptxas=report)
+        built[source] = dict(path=str(out), seconds=seconds, cached=False, ptxas=report)
     if failures:
         raise RuntimeError("\n".join(failures))
-    return outs
+    return built
+
+
+def build_all(names) -> dict:
+    """Compile ``csrc/<name>.cu`` into ``build/kernels/lib<name>-<hash>.so``
+    for each name (see :func:`build_sources`); name -> library path."""
+    built = build_sources([_CSRC / f"{name}.cu" for name in names])
+    for name in names:
+        info = built[_CSRC / f"{name}.cu"]
+        if not info["cached"] or BUILD_INFO.get(name, {}).get("path") != info["path"]:
+            BUILD_INFO[name] = info  # a load from disk keeps this process's build
+    return {name: Path(BUILD_INFO[name]["path"]) for name in names}
 
 
 def build(name: str) -> Path:
@@ -131,6 +152,8 @@ def load_qp_admm_kernel() -> ctypes.CDLL:
             + [ctypes.c_void_p]
         )
         lib.qp_admm_launch.restype = ctypes.c_int
+        lib.qp_admm_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.qp_admm_shape.restype = None
         _LIBS["qp_admm_kernel"] = lib
     return lib
 

@@ -9,18 +9,18 @@ that each refactor K = P + sigma I + rho A'A (n x n Cholesky) and run
 ``iters // 8`` over-relaxed x/z/y sweeps with a clip projection, with a
 per-problem adaptive rho between stages (``csrc/qp_admm_kernel.cu``).
 
-The launch shape (``launch_shape``) adapts the one kernel body to the
-batch.  A group of 8 to 32 lanes solves a problem, each lane holding its
-own rows in registers and the sums over rows gathered by shuffle.  Where a
-problem of n = 2 or 3 variables and m >= 7 rows (the shapes measured
-against the groups) fits in one thread's registers (m rounded up to even
-row slots of n + 4 floats, P, the factor and A'A, at most ``LANE_WORDS``:
-m <= 12 at n=2, m <= 10 at n=3) and the batch is large enough that the
-groups would run ``LANE_MIN_LANES`` lanes or more (B >= 16384 at m = 9-12,
-B >= 32768 at m = 7-8), one lane solves it alone: every sum over rows is a loop in that thread, with no
-shuffle, and a warp holds 32 problems.  Below that batch the groups win
-(one thread's sweep is a longer chain than a group's).  ``LAUNCH_COUNT``
-counts the launches, ``LANE_LAUNCH_COUNT`` those of one lane a problem.
+The launch shape adapts the one kernel body to the batch.  A group of 8
+to 32 lanes solves a problem, each lane holding its own rows in registers
+and the sums over rows gathered by shuffle.  Where a problem of n = 2 or 3
+variables and m >= 7 rows (the shapes measured against the groups) fits in
+one thread's registers (m <= 12 at n=2, m <= 10 at n=3) and the batch is
+large enough that the groups would run 2^18 lanes or more (B >= 16384 at
+m = 9-12, B >= 32768 at m = 7-8), one lane solves it alone: every sum over
+rows is a loop in that thread, with no shuffle, and a warp holds 32
+problems.  Below that batch the groups win (one thread's sweep is a longer
+chain than a group's).  The rule is the kernel's (``qp_admm_shape``), and
+``launch_shape`` asks the built library.  ``LAUNCH_COUNT`` counts the
+launches, ``LANE_LAUNCH_COUNT`` those of one lane a problem.
 
 ``solve_qp_batch_reference`` is the plain PyTorch version of that sweep:
 the same operations, every sum taken in the kernel's order (A'A over rows
@@ -35,6 +35,8 @@ The adaptive-rho rule is the kernel's own, ``rho * clip(sqrt(ratio), 0.1,
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -45,15 +47,8 @@ from safe_control_tpu_torch.utils.profiling import span
 
 N_STAGES = qp.N_STAGES
 MAX_N = 8  # variables per problem the kernel is instantiated for (1..8)
-# Launch shape (csrc/qp_admm_kernel.cu): one lane or a group of lanes per
-# problem, THREADS-thread blocks of THREADS / group problems.
+# Threads a block of the launch (csrc/qp_admm_kernel.cu): THREADS / G problems.
 THREADS = 128
-MIN_GROUP, MAX_GROUP = 8, 32  # lanes per problem in a group
-MAX_REG_ROWS = 8  # rows a lane of a group holds in registers; past that, in global memory
-LANE_WORDS = 92  # registers a problem's state may take in the one-lane shape
-LANE_MIN_N, LANE_MAX_N = 2, 3  # variables of the one-lane shape (those measured)
-LANE_MIN_ROWS = 7  # and its least rows
-LANE_MIN_LANES = 2**18  # a group's lanes (B x G) from which one lane a problem wins
 # Problems a launch takes: the kernel's B and its block and problem indices
 # are 32-bit ints (per-problem offsets are size_t), and the block count
 # rounds B up to whole blocks.
@@ -73,27 +68,14 @@ def _f32(v) -> float:
 
 def launch_shape(B: int, n: int, m: int) -> tuple[int, int]:
     """``(G, R)`` for ``B`` problems of ``n`` variables and ``m`` rows: G
-    lanes per problem and R row slots a lane holds in registers.  The
-    group's width is the least power of two >= m within [MIN_GROUP,
-    MAX_GROUP].  One lane (G = 1) where n is from LANE_MIN_N to LANE_MAX_N,
-    m at least LANE_MIN_ROWS, the state, m rounded up to even times n + 4,
-    plus n^2 + n (n + 1), at most LANE_WORDS, and B times the group's width
-    at least LANE_MIN_LANES, with R that rounded m; else
-    the group, with R the least power of two with R G >= m (0 past
-    MAX_REG_ROWS: the rows stay in global memory).  The kernel's
-    ``qp_admm_shape``."""
-    g = MIN_GROUP
-    while g < MAX_GROUP and g < m:
-        g *= 2
-    slots = m + m % 2
-    fits = (LANE_MIN_N <= n <= LANE_MAX_N and m >= LANE_MIN_ROWS
-            and slots * (n + 4) + n * n + n * (n + 1) <= LANE_WORDS)
-    if fits and B >= LANE_MIN_LANES // g:
-        return 1, slots
-    r = 1
-    while r * g < m:
-        r *= 2
-    return g, (r if r <= MAX_REG_ROWS else 0)
+    lanes per problem (1, or a group of 8 to 32) and R row slots a lane
+    holds in registers (0: the rows stay in global memory).  Asks the
+    built library (the kernel's ``qp_admm_shape``)."""
+    from safe_control_tpu_torch import _build
+
+    g, r = ctypes.c_int(), ctypes.c_int()
+    _build.load_qp_admm_kernel().qp_admm_shape(B, n, m, ctypes.byref(g), ctypes.byref(r))
+    return g.value, r.value
 
 
 def _check_inputs(P, q, A, l, u) -> None:

@@ -157,16 +157,47 @@ def test_wrapper_rejects_bad_inputs():
         qpk.solve_qp_batch(*mixed_dtype)
 
 
+def cuda_constants() -> dict:
+    """The ``constexpr int`` constants of ``csrc/qp_admm_kernel.cu``."""
+    text = (CSRC / "qp_admm_kernel.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
 def test_cuda_source_constants_match_module():
     text = (CSRC / "qp_admm_kernel.cu").read_text()
-    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", text))
-    assert int(consts["N_STAGES"]) == qpk.N_STAGES == 8
-    assert int(consts["MAX_N"]) == qpk.MAX_N
+    consts = cuda_constants()
+    assert consts["N_STAGES"] == qpk.N_STAGES == 8
+    assert consts["MAX_N"] == qpk.MAX_N
     # the launch shape: groups of 8 to 32 lanes tile whole warps and blocks
-    for name in ("THREADS", "MIN_GROUP", "MAX_GROUP", "MAX_REG_ROWS", "LANE_WORDS",
-                 "LANE_MIN_LANES", "LANE_MIN_N", "LANE_MAX_N", "LANE_MIN_ROWS"):
-        assert int(consts[name]) == getattr(qpk, name), name
-    assert qpk.THREADS % 32 == 0 and 32 % qpk.MIN_GROUP == 0 and qpk.MAX_GROUP == 32
+    assert consts["THREADS"] == qpk.THREADS
+    assert qpk.THREADS % 32 == 0 and 32 % consts["MIN_GROUP"] == 0 and consts["MAX_GROUP"] == 32
+    for n in range(1, qpk.MAX_N + 1):  # every n the wrapper accepts is instantiated
+        assert f"case {n}: QP_N({n})" in text or f"default: QP_N({n})" in text
+
+
+@pytest.fixture(scope="module")
+def cpu_lib(tmp_path_factory):
+    """``csrc/qp_admm_kernel.cu`` built for the CPU under the warp emulation."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the CUDA source for the CPU")
+    lib = cuda_on_cpu.build(CSRC / "qp_admm_kernel.cu", tmp_path_factory.mktemp("qp_cpu"))
+    lib.qp_admm_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    lib.qp_admm_launch.restype = ctypes.c_int
+    lib.qp_admm_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.qp_admm_shape.restype = None
+    return lib
+
+
+def test_launch_shape_matches_cuda_source(cpu_lib, monkeypatch):
+    """``launch_shape`` asks the built library's ``qp_admm_shape`` (here the
+    CPU build of the same source): its values at the paths' shapes, and
+    over every input the rule reads (n, m and B on both sides of each group
+    width's threshold) a shape the kernel can run, its rows all in a lane's
+    slots or all in global memory."""
+    from safe_control_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "load_qp_admm_kernel", lambda: cpu_lib)
     assert qpk.launch_shape(4096, 2, 7) == (8, 1)  # the CBF-QP path: four problems a warp
     assert qpk.launch_shape(32767, 2, 7) == (8, 1)
     assert qpk.launch_shape(32768, 2, 7) == (1, 8)  # from 2^18 lanes: one lane, 8 slots
@@ -188,34 +219,18 @@ def test_cuda_source_constants_match_module():
     assert qpk.launch_shape(4096, 3, 153) == (32, 8)  # Manipulator2D: a warp, rows in registers
     assert qpk.launch_shape(2**19, 3, 153) == (32, 8)
     assert qpk.launch_shape(4096, 2, 257) == (32, 0)  # past 256 rows: in global memory
-    for n in range(1, qpk.MAX_N + 1):  # every n the wrapper accepts is instantiated
-        assert f"case {n}: QP_N({n})" in text or f"default: QP_N({n})" in text
-
-
-@pytest.fixture(scope="module")
-def cpu_lib(tmp_path_factory):
-    """``csrc/qp_admm_kernel.cu`` built for the CPU under the warp emulation."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to build the CUDA source for the CPU")
-    lib = cuda_on_cpu.build(CSRC / "qp_admm_kernel.cu", tmp_path_factory.mktemp("qp_cpu"))
-    lib.qp_admm_launch.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    lib.qp_admm_launch.restype = ctypes.c_int
-    lib.qp_admm_shape.restype = None
-    return lib
-
-
-def test_launch_shape_matches_cuda_source(cpu_lib):
-    """The C ``qp_admm_shape`` and ``launch_shape`` over every input the rule
-    reads: n, m and B on both sides of each group width's threshold."""
-    g, r = ctypes.c_int(), ctypes.c_int()
+    lanes = cuda_constants()["LANE_MIN_LANES"]
     batches = sorted({1, 4096, qpk.MAX_BATCH, 2**19}
-                     | {qpk.LANE_MIN_LANES // w + d for w in (8, 16, 32) for d in (-1, 0, 1)})
+                     | {lanes // w + d for w in (8, 16, 32) for d in (-1, 0, 1)})
     for B in batches:
         for n in range(1, qpk.MAX_N + 1):
             for m in range(1, 600):
-                cpu_lib.qp_admm_shape(B, n, m, ctypes.byref(g), ctypes.byref(r))
-                assert (g.value, r.value) == qpk.launch_shape(B, n, m), (B, n, m)
+                G, R = qpk.launch_shape(B, n, m)
+                if G == 1:
+                    assert R == m + m % 2, (B, n, m)
+                else:
+                    assert G in (8, 16, 32) and R in (0, 1, 2, 4, 8), (B, n, m)
+                    assert R == 0 or R * G >= m, (B, n, m)
 
 
 @pytest.mark.parametrize("batch,n,m,iters", [
@@ -266,13 +281,16 @@ def test_cuda_source_on_the_cpu_matches_plain_version(cpu_lib, monkeypatch, batc
     assert torch.equal(x, x_p) and torch.equal(y, y_p)
 
 
-def test_lane_launch_count_is_registered_and_traced(tmp_path, monkeypatch):
+def test_lane_launch_count_is_registered_and_traced(cpu_lib, tmp_path, monkeypatch):
     """``LANE_LAUNCH_COUNT`` is registered beside ``LAUNCH_COUNT``, so that
     captures keep it and ``trace_to`` reports its rise in ``port_counters``;
-    a launch adds one to it where the launch shape is one lane."""
+    a launch adds one to it where the launch shape (the library's rule,
+    here the CPU build's) is one lane."""
+    from safe_control_tpu_torch import _build
     from safe_control_tpu_torch.core import graphs
     from safe_control_tpu_torch.utils import profiling
 
+    monkeypatch.setattr(_build, "load_qp_admm_kernel", lambda: cpu_lib)
     assert graphs.COUNTERS[qpk.__name__] == ("LAUNCH_COUNT", "LANE_LAUNCH_COUNT")
     monkeypatch.setattr(qpk, "LAUNCH_COUNT", 0)
     monkeypatch.setattr(qpk, "LANE_LAUNCH_COUNT", 0)
