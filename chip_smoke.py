@@ -41,13 +41,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    feasible, equal ``feasible`` flags).
 7. Drives the CBF-QP path, ``entry.build_cbf_qp_step(4096, device="cuda")``,
    for 5 closed-loop steps: finite outputs of the right shapes, at least 5
-   QP kernel launches, and each step's first 64 robots within 1e-3 of the
-   plain version on the same inputs.
+   QP kernel launches and one finish kernel launch with each, and each
+   step's first 64 robots within 1e-3 of the plain version on the same
+   inputs.
 8. Times the QP kernel's launch at B=1, 4096 and 16384, the kernel through
-   its wrapper (and the wrapper's ``qp.equilibrate`` and ``qp.finish``
-   alone) and its plain version, and CBF-QP steps/s through the kernel and
-   through the general path; the kernel's operation count, bound and share
-   reached.
+   its wrapper (and the wrapper's ``qp.equilibrate`` and its finish kernel
+   alone, beside the general path's ``qp.finish``) and its plain version,
+   and CBF-QP steps/s through the kernel and through the general path; the
+   kernel's operation count, bound and share reached.
+   8b. The finish kernel (``csrc/qp_finish_kernel.cu``) against
+   ``_finish_plain`` on B2's iterates, x, y and both residuals bit for bit,
+   else the phase fails: the CBF-QP path's n=2 m=7 B=4096, n=2 and n=3 at
+   m=13 (B=4096), Manipulator2D's CBF-QP (n=3, m=118, B=4096), random QPs
+   at m=153 (B=256) and 300 rows (B=64); each timed beside the general
+   path's ``qp.finish``, with its bytes' bound.
 9. Reports the generic fused MPC kernel's build: seconds, and per model the
    instantiation its configuration launches, with its threads a block (one
    warp at M <= 32, else 128), registers, stack, spills, dynamic shared
@@ -153,7 +160,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
     iterations, one lane a problem): the QPs of the sweep's first step
     against the plain sweep on a seeded sample with the first and last
     blocks, bit for bit (gated), one launch counted in ``LANE_LAUNCH_COUNT``
-    (gated), the launch's ms, bound and share.
+    (gated), the launch's ms, bound and share; then the finish kernel on
+    the same step's inputs against ``_finish_plain`` on all 2^19 problems,
+    bit for bit (gated), timed beside ``qp.finish``.
 22. MPCC (``solvers/mpcc.py``, N=30, M=90, the general AL-GN solve): one
     float64 solve at a 3x2 budget on the card and on the CPU (|du| <= 1e-6)
     and one float32 solve at the full 12x4 budget, eager, timed.
@@ -975,24 +984,97 @@ def dynamic_env(dev, card):
     return launches, step_ms, kernel_ms, max(dev_plain)
 
 
-def manipulator_cbf_qp(dev, card):
-    """Phase 18: the Manipulator2D CBF-QP (n=3, m=118) through B2 at B=4096.
-    Returns the JSON shape."""
+def manipulator_inputs(dev):
+    """Manipulator2D's CBF-QP inputs at B=4096, from ``default_rng(0)``:
+    (name, spec, model, x, u_ref, obstacles)."""
     import numpy as np
 
-    from safe_control_tpu_torch import entry
     from safe_control_tpu_torch.core.spec import make_spec
     from safe_control_tpu_torch.core.types import pad_obstacles
     from safe_control_tpu_torch.dynamics import get_model
-    from safe_control_tpu_torch.solvers import cbf_qp, qp
-    from safe_control_tpu_torch.solvers import qp_kernel as qpk
 
     name = "Manipulator2D"
-    spec, model = make_spec(name), get_model(name)
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.uniform(0.2, 1.2, (BATCH, 3)), dtype=torch.float32, device=dev)
     u_ref = torch.as_tensor(rng.uniform(-2.0, 2.0, (BATCH, 3)), dtype=torch.float32, device=dev)
     obs = pad_obstacles(ARM_OBSTACLES, 5, device=dev)[None].repeat(BATCH, 1, 1)
+    return name, make_spec(name), get_model(name), x, u_ref, obs
+
+
+def finish_bytes(B, n, m):
+    """Bytes the finish kernel must move: a problem's inputs (P, q, A, l, u,
+    their scaled copies, d, e, x, y) and outputs (x, y, two residuals) in
+    float32; 520 B at n=2, m=10."""
+    return 4.0 * B * (2 * n * n + 4 * n + 2 * m * n + 6 * m + n + m + 2)
+
+
+def finish_check(label, data, x, y, scaled):
+    """The finish kernel against ``_finish_plain`` on one set of inputs:
+    (bit-identical in x, y and both residuals, max |difference|)."""
+    from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+    got = qpk._finish_cuda(*data, scaled, x, y, True)
+    want = qpk._finish_plain(*data, scaled, x, y, True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max((g - w).abs().nan_to_num(float("inf")).max().item() for g, w in zip(got, want))
+    if not same:
+        raise SystemExit(f"the finish kernel disagrees with _finish_plain ({label}): "
+                         f"max |difference| {err:.3e}")
+    return same, err
+
+
+def finish_kernel(dev, card, qp_data):
+    """Phase 8b: the finish kernel against its plain version, bit for bit in
+    x, y and both residuals, on B2's iterates at the CUDA path's shapes:
+    the CBF-QP path (n=2, m=7, B=4096, one thread a problem), and one block
+    a problem at n=2 and n=3 with m=13 (B=4096), Manipulator2D's CBF-QP
+    (n=3, m=118, B=4096), and random QPs at m=153 (B=256) and 300 rows
+    (B=64).  Each is timed against the general path's ``qp.finish`` on the
+    same inputs.  Returns (launches counted, [shape dicts], the plain
+    version's ms at the first shape)."""
+    from safe_control_tpu_torch import _build, entry
+    from safe_control_tpu_torch.solvers import cbf_qp, qp
+    from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+    name, spec, model, ax, au, aobs = manipulator_inputs(dev)
+    arm = cbf_qp._assemble(model, name, spec, ax, au, aobs, entry.DT, "cbf")[:5]
+    cases = [("CBF-QP", qp_data, 1600), ("random", wide_qps(dev, BATCH, 2, 13), 1600),
+             ("random", wide_qps(dev, BATCH, 3, 13), 1600), ("Manipulator2D CBF-QP", arm, 1600),
+             ("random", wide_qps(dev), 300), ("random", wide_qps(dev, 64, 2, 300), 300)]
+    qpk.FINISH_LAUNCH_COUNT = 0
+    shapes, plain_ms = [], None
+    for label, data, iters in cases:
+        B, m, n = data[2].shape
+        scaled = qp.equilibrate(*data)
+        x, y = qpk._sweep_cuda(*scaled[:5], iters, 1.0, 1e-6, 1.6)
+        shape = f"{label} n={n} m={m} B={B}"
+        same, err = finish_check(shape, data, x, y, scaled)
+        ms = sync_time(lambda: qpk._finish_cuda(*data, scaled, x, y, True), 10)
+        qp.finish(*data, scaled, x, y, True)  # its first call sets up the batched LU
+        general_ms = sync_time(lambda: qp.finish(*data, scaled, x, y, True), 10)
+        if plain_ms is None:
+            plain_ms = sync_time(lambda: qpk._finish_plain(*data, scaled, x, y, True), 1)
+        bnd, by = bound(0.0, finish_bytes(B, n, m))
+        shapes.append({"shape": shape, "ms": ms, "general_ms": general_ms, "bound_ms": bnd,
+                       "bound_by": by, "max_abs_err": err})
+        work = _build.load_qp_finish_kernel().qp_finish_workspace(B, n, m)
+        print(f"phase 8b [{card}] the finish kernel at {shape} ({iters} iterations, "
+              f"workspace {4 * work / 2**20:.1f} MiB), bit-identical to _finish_plain {same}: "
+              f"{ms:.4f} ms a launch vs the general "
+              f"path's qp.finish {general_ms:.4f} ms ({general_ms / ms:.1f}x); bound "
+              f"{bnd:.4f} ms by {by}")
+    return len(cases), shapes, plain_ms
+
+
+def manipulator_cbf_qp(dev, card):
+    """Phase 18: the Manipulator2D CBF-QP (n=3, m=118) through B2 at B=4096.
+    Returns the JSON shape."""
+    from safe_control_tpu_torch import entry
+    from safe_control_tpu_torch.solvers import cbf_qp, qp
+    from safe_control_tpu_torch.solvers import qp_kernel as qpk
+
+    name, spec, model, x, u_ref, obs = manipulator_inputs(dev)
     qpk.LAUNCH_COUNT = 0
     kern = cbf_qp.solve_batch(name, spec, x, u_ref, obs, entry.DT, backend="pallas")
     torch.cuda.synchronize()
@@ -1307,13 +1389,17 @@ def sweep_scale_b2(dev, card):
     iterations).  The QPs are the sweep's own: those of its first step,
     taken at B2's launch.  x and y of one launch against the plain sweep on
     a seeded sample of 4,096 problems and the first and last blocks': bit
-    for bit, else the phase fails.  The launch alone is timed.  Returns
-    (ms, bound, its kind, max |dx|, max |dy|, shape in words)."""
+    for bit, else the phase fails.  The launch alone is timed.  Then the
+    finish kernel on the same step's inputs against ``_finish_plain`` on
+    every problem, bit for bit, timed beside ``qp.finish``.  Returns (ms,
+    bound, its kind, max |dx|, max |dy|, shape in words, the finish's shape
+    dict)."""
     import numpy as np
 
     from safe_control_tpu_torch.core.spec import make_spec
     from safe_control_tpu_torch.parallel import monte_carlo as mc
     from safe_control_tpu_torch.sim import tracking
+    from safe_control_tpu_torch.solvers import qp
     from safe_control_tpu_torch.solvers import qp_kernel as qpk
 
     t_phase = time.perf_counter()
@@ -1325,12 +1411,13 @@ def sweep_scale_b2(dev, card):
     wps = torch.tensor(DYN_WAYPOINTS, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(2**31 + 21)
     st0 = mc.dpcbf_sweep_init(cfg, spec, gen, B, wps, device=dev)
-    seen, sweep_cuda = [], qpk._sweep_cuda
+    seen, seen_fin, sweep_cuda, finish_cuda = [], [], qpk._sweep_cuda, qpk._finish_cuda
     qpk._sweep_cuda = lambda *a: seen.append(a) or sweep_cuda(*a)
+    qpk._finish_cuda = lambda *a: seen_fin.append(a) or finish_cuda(*a)
     try:
         tracking.step(cfg, spec, st0.tracker, wps, 2, st0.obs)
     finally:
-        qpk._sweep_cuda = sweep_cuda
+        qpk._sweep_cuda, qpk._finish_cuda = sweep_cuda, finish_cuda
     if len(seen) != 1:
         raise SystemExit(f"phase 21b failed: the sweep's step made {len(seen)} B2 launches")
     scaled, args = seen[0][:5], seen[0][5:]
@@ -1361,7 +1448,22 @@ def sweep_scale_b2(dev, card):
         raise SystemExit("phase 21b failed: B2 at 2^19 disagrees with the plain sweep")
     if lane != (1, 1):
         raise SystemExit(f"phase 21b failed: the launch did not count as one lane: {lane}")
-    return ms, b2_bound, b2_by, dx, dy, f"DPCBF sweep n={qn} m={qm} B={B}: {shape}"
+    # the finish kernel on the same step's inputs (B2's iterate), every problem
+    if len(seen_fin) != 1:
+        raise SystemExit(f"phase 21b failed: the sweep's step made {len(seen_fin)} finish launches")
+    fdata, fscaled, fx, fy = seen_fin[0][:5], *seen_fin[0][5:8]
+    fsame, ferr = finish_check(f"DPCBF sweep B={B}", fdata, fx, fy, fscaled)
+    fin_ms = sync_time(lambda: qpk._finish_cuda(*fdata, fscaled, fx, fy, True), 10)
+    qp.finish(*fdata, fscaled, fx, fy, True)
+    general_ms = sync_time(lambda: qp.finish(*fdata, fscaled, fx, fy, True), 10)
+    fbnd, fby = bound(0.0, finish_bytes(B, qn, qm))
+    print(f"phase 21b [{card}] the finish kernel on the same step's {B} problems: bit-identical "
+          f"to _finish_plain {fsame}; {fin_ms:.4f} ms a launch vs the general path's qp.finish "
+          f"{general_ms:.4f} ms; bound {fbnd:.4f} ms by {fby}, {100 * fbnd / fin_ms:.2f}% of it "
+          f"reached")
+    return (ms, b2_bound, b2_by, dx, dy, f"DPCBF sweep n={qn} m={qm} B={B}: {shape}",
+            {"shape": f"DPCBF sweep n={qn} m={qm} B={B}", "ms": fin_ms, "general_ms": general_ms,
+             "bound_ms": fbnd, "bound_by": fby, "max_abs_err": ferr})
 
 
 def mpcc_alone(dev, card):
@@ -2610,7 +2712,8 @@ def main() -> None:
     # the QP and fused kernels finish in the background while phases 2-8 run)
     nvcc_pool = concurrent.futures.ThreadPoolExecutor(3)
     builds = {name: nvcc_pool.submit(_build.build_all, [name])
-              for name in ("qp_admm_kernel", "mpc_fused_kernel", "mpc_fused_clock")}
+              for name in ("qp_admm_kernel", "qp_finish_kernel", "mpc_fused_kernel",
+                           "mpc_fused_clock")}
     nvcc_pool.shutdown(wait=False)
     _build.build_all(["mpc_du_kernel"])
     _build.load_mpc_du_kernel()
@@ -2742,7 +2845,9 @@ def main() -> None:
     elapsed("phase 5")
     # ---- phase 5: the QP ADMM kernel's build ---------------------------------
     builds["qp_admm_kernel"].result()
+    builds["qp_finish_kernel"].result()
     _build.load_qp_admm_kernel()
+    _build.load_qp_finish_kernel()
     info = _build.BUILD_INFO["qp_admm_kernel"]
     qp_shapes = []
     # the CBF-QP path, the DPCBF sweep at 2^19 and the Manipulator2D scale
@@ -2759,6 +2864,9 @@ def main() -> None:
           f"{ptxas_summary(info['ptxas'], path_kernels)}; launch shape "
           + "; ".join(qp_shapes) + f"; at B={BATCH}, m=7: {-(-BATCH * g7 // qpk.THREADS)} blocks "
           f"on {sms} SMs")
+    fin_info = _build.BUILD_INFO["qp_finish_kernel"]
+    print(f"phase 5 build: qp_finish_kernel {fin_info['seconds']:.1f} s "
+          f"(cached={fin_info['cached']}); ptxas: {ptxas_summary(fin_info['ptxas'])}")
 
     # ---- phase 6: QP kernel vs its plain version -------------------------------
     cstep_k, (qxs, qgoals, qobs) = entry.build_cbf_qp_step(BATCH, device=dev)
@@ -2815,7 +2923,7 @@ def main() -> None:
         raise SystemExit("phase 6c failed: QP kernel disagrees with the general solve_qp")
 
     # ---- phase 7: the CBF-QP path ----------------------------------------------
-    qpk.LAUNCH_COUNT = 0
+    qpk.LAUNCH_COUNT = qpk.FINISH_LAUNCH_COUNT = 0
     x = qxs
     q_inputs, q_us = [], []
     for _ in range(STEPS):
@@ -2823,14 +2931,15 @@ def main() -> None:
         x, u_c, feas_c, hmin_c = cstep_k(x, qgoals, qobs)
         q_us.append(u_c)
     torch.cuda.synchronize()
-    qp_launches = qpk.LAUNCH_COUNT
+    qp_launches, fin_launches = qpk.LAUNCH_COUNT, qpk.FINISH_LAUNCH_COUNT
     outs_ok = all(bool(torch.isfinite(t).all()) for t in (x, u_c, hmin_c))
     shapes_ok = [tuple(t.shape) for t in (x, u_c, feas_c, hmin_c)] == [
         (BATCH, 4), (BATCH, 2), (BATCH,), (BATCH,)]
     print(f"phase 7 CBF-QP path: {STEPS} steps at B={BATCH}, QP kernel launches {qp_launches}, "
+          f"finish kernel launches {fin_launches}, "
           f"finite {outs_ok}, shapes {shapes_ok}, feasible {int(feas_c.sum())}/{BATCH}, "
           f"min h_min {hmin_c.min().item():.3e}")
-    if qp_launches < STEPS or not outs_ok or not shapes_ok:
+    if qp_launches < STEPS or fin_launches != qp_launches or not outs_ok or not shapes_ok:
         raise SystemExit("phase 7 failed: CBF-QP path did not run through the kernel cleanly")
     dev_plain = []
     for xi, ui in zip(q_inputs, q_us):
@@ -2864,7 +2973,8 @@ def main() -> None:
     scaled = qp.equilibrate(*qp_data)
     x_s, y_s = qpk._sweep_cuda(*scaled[:5], 1600, 1.0, 1e-6, 1.6)
     eq_ms = sync_time(lambda: qp.equilibrate(*qp_data), 10)
-    fin_ms = sync_time(lambda: qp.finish(*qp_data, scaled, x_s, y_s, True), 10)
+    fin_ms = sync_time(lambda: qpk._finish_cuda(*qp_data, scaled, x_s, y_s, True), 10)
+    general_fin_ms = sync_time(lambda: qp.finish(*qp_data, scaled, x_s, y_s, True), 10)
     run_qp()
     qp_plain_ms = sync_time(run_qp, 1)
     cstep_g, _ = entry.build_cbf_qp_step(BATCH, device=dev, backend="xla")
@@ -2882,12 +2992,14 @@ def main() -> None:
           f"{100 * b2_bound / sweep_ms[BATCH]:.2f}% "
           f"of it reached by the launch")
     print(f"phase 8 [{card}] B={BATCH}: QP kernel path {qp_ms:.3f} ms/solve-batch "
-          f"(qp.equilibrate {eq_ms:.3f} ms, the launch {sweep_ms[BATCH]:.3f} ms, qp.finish "
-          f"{fin_ms:.3f} ms, each alone) vs plain version {qp_plain_ms:.1f} ms; "
+          f"(qp.equilibrate {eq_ms:.3f} ms, the launch {sweep_ms[BATCH]:.3f} ms, the finish "
+          f"kernel {fin_ms:.3f} ms, each alone; the general path's qp.finish "
+          f"{general_fin_ms:.3f} ms) vs plain version {qp_plain_ms:.1f} ms; "
           f"CBF-QP path {1e3 / cstep_ms_k:.1f} steps/s ({BATCH * 1e3 / cstep_ms_k:.1f} "
           f"robot-steps/s, {cstep_ms_k:.3f} ms/step) through the kernel vs "
           f"{1e3 / cstep_ms_g:.1f} steps/s ({cstep_ms_g:.1f} ms/step) through the general "
           f"solve_qp")
+    fin_checked, fin_shapes, fin_plain_ms = finish_kernel(dev, card, qp_data)
 
     elapsed("phase 24")
     # ---- phase 24 (no kernel) runs here, while the fused kernel's build of 26
@@ -3160,6 +3272,22 @@ def main() -> None:
         "plain_ms": qp_plain_ms,
         "bound_ms": b2_bound,
         "bound_by": b2_by,
+        "library_ms": None,
+    }, {
+        "name": "qp_finish_kernel",
+        "route": "cuda",
+        "source": "safe_control_tpu_torch/csrc/qp_finish_kernel.cu",
+        "replaces": None,
+        "launches": fin_launches,
+        "launches_per_step": fin_launches / STEPS,
+        "checked_launches": fin_checked + 1,
+        "shapes": fin_shapes + [sweep_b2[6]],
+        "max_abs_err": max(s["max_abs_err"] for s in fin_shapes + [sweep_b2[6]]),
+        "ms": fin_shapes[0]["ms"],
+        "plain_ms": fin_plain_ms,
+        "general_ms": fin_shapes[0]["general_ms"],
+        "bound_ms": fin_shapes[0]["bound_ms"],
+        "bound_by": fin_shapes[0]["bound_by"],
         "library_ms": None,
     }, {
         "name": "mpc_fused_kernel",

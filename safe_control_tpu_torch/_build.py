@@ -158,6 +158,27 @@ def load_qp_admm_kernel() -> ctypes.CDLL:
     return lib
 
 
+def load_qp_finish_kernel() -> ctypes.CDLL:
+    """The batched QP finish kernel library, built at first use."""
+    lib = _LIBS.get("qp_finish_kernel")
+    if lib is None:
+        lib = bind_qp_finish(ctypes.CDLL(str(build("qp_finish_kernel"))))
+        _LIBS["qp_finish_kernel"] = lib
+    return lib
+
+
+def bind_qp_finish(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``csrc/qp_finish_kernel.cu``, with its entry
+    points' argument and result types declared."""
+    lib.qp_finish_launch.argtypes = (
+        [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    )
+    lib.qp_finish_launch.restype = ctypes.c_int
+    lib.qp_finish_workspace.argtypes = [ctypes.c_int] * 3
+    lib.qp_finish_workspace.restype = ctypes.c_longlong
+    return lib
+
+
 def load_mpc_fused_kernel(clock: bool = False) -> ctypes.CDLL:
     """The generic fused MPC kernel library, or with ``clock`` the library
     of its instantiations with the phase clock (``csrc/mpc_fused_clock.cu``;

@@ -2,7 +2,8 @@
 
 The port's hand-written kernels run only on a card, but their arithmetic
 is plain IEEE float32 and the CUDA features they use are few: lanes that
-shuffle and ``__syncwarp``, ``__syncthreads`` over a block, static and
+shuffle (floats and ints), vote (``__ballot_sync``, ``__popc``) and
+``__syncwarp``, ``__syncthreads`` over a block, static and
 dynamic shared memory, ``clock64`` (here the host's steady clock in
 nanoseconds) and 64-bit ``atomicAdd``.  ``build`` compiles a ``csrc/*.cu`` with g++ against
 the header below, with ``<<<...>>>`` turned into ``emu_launch``: one block
@@ -177,6 +178,25 @@ static inline float __shfl_xor_sync(unsigned, float v, int mask, int width = 32)
   const int lane = emu_cur % 32;
   return emu_exchange(v, (lane & ~(width - 1)) + ((lane ^ mask) & (width - 1)));
 }
+static inline int __shfl_xor_sync(unsigned, int v, int mask, int width = 32) {
+  float f;
+  memcpy(&f, &v, sizeof f);
+  f = __shfl_xor_sync(0u, f, mask, width);
+  memcpy(&v, &f, sizeof v);
+  return v;
+}
+// A bit a lane of the warp, set where pred holds (the shuffles' buffers).
+static inline unsigned __ballot_sync(unsigned, int pred) {
+  const int w = emu_cur / 32, lane = emu_cur % 32;
+  float* slots = &emu_slots[(2 * w + (emu_warp_phase[w] & 1)) * 32];
+  slots[lane] = pred ? 1.0f : 0.0f;
+  __syncwarp();
+  unsigned bits = 0;
+  for (int i = 0; i < emu_warp_size(w); ++i)
+    if (slots[i] != 0.0f) bits |= 1u << i;
+  return bits;
+}
+static inline int __popc(unsigned v) { return __builtin_popcount(v); }
 static inline void* emu_dynamic_shared() { return emu_dyn.data(); }
 // Threads a block of the last launch (0 before any).
 extern "C" int emu_block_threads() { return emu_nthreads; }

@@ -1,19 +1,22 @@
-"""The QP ADMM kernel module: its plain PyTorch version, wrapper and source.
+"""The QP kernels' module: its plain PyTorch versions, wrapper and sources.
 
 On the CPU the wrapper ``solve_qp_batch`` runs ``solve_qp_batch_reference``,
 the plain PyTorch version of ``csrc/qp_admm_kernel.cu`` (the same
-operations in the same order).  It is held against the JAX
+operations in the same order) and of ``csrc/qp_finish_kernel.cu``
+(``_finish_plain``).  It is held against the JAX
 ``solve_qp_batch_pallas`` run in Pallas interpret mode, as the JAX
 package's own tests run it (``tests/test_qp_kernel.py``), at the full
 1600-iteration budget: |dx| < 1e-3 on problems both solve (two float32
 solves of one problem by different operation orders); and against the
-analytic optima at 1e-5.  The CUDA source itself is built for the CPU
-under the warp emulation of ``cuda_on_cpu`` and held to the plain sweep
-bit for bit; on a card the ``gpu``-marked tests and ``chip_smoke.py``
-check the kernel.  On a machine without JAX run those with
-``--noconftest``.
+analytic optima at 1e-5.  Both CUDA sources are built for the CPU under
+the warp emulation of ``cuda_on_cpu`` and held to their plain versions
+bit for bit, and the wrapper's CUDA path runs on the CPU through those
+builds; ``_finish_plain`` is held against ``qp.finish``.  On a card the
+``gpu``-marked tests and ``chip_smoke.py`` check the kernels.  On a
+machine without JAX run those with ``--noconftest``.
 """
 
+import contextlib
 import ctypes
 import json
 import re
@@ -291,7 +294,8 @@ def test_lane_launch_count_is_registered_and_traced(cpu_lib, tmp_path, monkeypat
     from safe_control_tpu_torch.utils import profiling
 
     monkeypatch.setattr(_build, "load_qp_admm_kernel", lambda: cpu_lib)
-    assert graphs.COUNTERS[qpk.__name__] == ("LAUNCH_COUNT", "LANE_LAUNCH_COUNT")
+    assert graphs.COUNTERS[qpk.__name__] == ("LAUNCH_COUNT", "LANE_LAUNCH_COUNT",
+                                             "FINISH_LAUNCH_COUNT")
     monkeypatch.setattr(qpk, "LAUNCH_COUNT", 0)
     monkeypatch.setattr(qpk, "LANE_LAUNCH_COUNT", 0)
     with profiling.trace_to(str(tmp_path / "trace")):
@@ -313,7 +317,8 @@ def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch, batch, m
     ragged block, the sweep's (m=10) and the DI fleet's (m=12) QPs on
     ragged blocks, in groups and (from 32,768 and 16,384 problems) one lane
     a problem, and the Manipulator2D scale (feasible QPs, 300 iterations);
-    the CUDA path never runs the plain sweep."""
+    the CUDA path never runs the plain sweep, the plain finish or
+    ``qp.finish``, and launches each kernel once."""
     if m == 7:
         qps, iters, tol = cbf_qps(batch), 1600, 1e-3
     elif m in (10, 12):
@@ -332,11 +337,15 @@ def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch, batch, m
     def refuse(*a, **k):
         raise AssertionError("the CUDA path ran the plain version")
 
+    before_finish = qpk.FINISH_LAUNCH_COUNT
     monkeypatch.setattr(qpk, "solve_qp_batch_reference", refuse)
     monkeypatch.setattr(qpk, "_sweep_plain", refuse)
+    monkeypatch.setattr(qpk, "_finish_plain", refuse)
+    monkeypatch.setattr(tqp, "finish", refuse)
     kern = qpk.solve_qp_batch(*ins, iters=iters)
     torch.cuda.synchronize()
     assert qpk.LAUNCH_COUNT == before + 1
+    assert qpk.FINISH_LAUNCH_COUNT == before_finish + 1
     if m < 100:
         assert (kern.x - plain.x).abs().max().item() < tol
         assert torch.equal(kern.prim_res < 1e-3, plain.prim_res < 1e-3)
@@ -409,3 +418,306 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     return torch.device("cuda", 0)
+
+
+# ---- the finish kernel (csrc/qp_finish_kernel.cu) ------------------------------
+
+
+def finish_constants() -> dict:
+    """The ``constexpr int`` constants of ``csrc/qp_finish_kernel.cu``."""
+    text = (CSRC / "qp_finish_kernel.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+@pytest.fixture(scope="module")
+def finish_lib(tmp_path_factory):
+    """``csrc/qp_finish_kernel.cu`` built for the CPU under the emulation."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the CUDA source for the CPU")
+    from safe_control_tpu_torch import _build
+
+    return _build.bind_qp_finish(cuda_on_cpu.build(CSRC / "qp_finish_kernel.cu",
+                                                   tmp_path_factory.mktemp("finish_cpu")))
+
+
+@pytest.fixture
+def cpu_finish(finish_lib, monkeypatch):
+    """``qpk._finish_cuda``, the wrapper's launch, on CPU tensors through the
+    CPU build (the null stream)."""
+    from safe_control_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "load_qp_finish_kernel", lambda: finish_lib)
+    monkeypatch.setattr(qpk, "_current_stream", lambda device: contextlib.nullcontext(None))
+    return qpk._finish_cuda
+
+
+def iterate(qps, iters):
+    """The problems, their scaling and the plain sweep's iterate."""
+    s = tqp.equilibrate(*qps)
+    x, y = qpk._sweep_plain(s.P, s.q, s.A, s.l, s.u, iters, 1.0, 1e-6, 1.6)
+    return s, x, y
+
+
+def mixed_qps(batch, n, m):
+    """Random QPs on 20 of their rows, the rest free, but for problems 0,
+    16 and 19 (80 consistent equality rows each, from row 20) and 5 (40):
+    active sets of n + 80 and n + 40 unknowns whose polished points are
+    kept, with small ones beside them."""
+    P, q, A, l, u = random_qps(m + n, batch, n, m)
+    l[:, 20:], u[:, 20:] = -np.inf, np.inf
+    rng = np.random.default_rng(m)
+    for b, rows in ((0, 80), (16, 80), (19, 80), (5, 40)):
+        l[b, :20], u[b, :20] = -np.inf, np.inf
+        l[b, 20:20 + rows] = u[b, 20:20 + rows] = A[b, 20:20 + rows] @ rng.normal(size=n)
+    return P, q, A, l, u
+
+
+def test_finish_source_constants_and_workspace_rule(finish_lib):
+    """The source takes every n the wrapper accepts.  A block's inputs and
+    systems stay in shared memory (no workspace) at the CBF-QP paths'
+    shapes, one thread a problem up to 48 KB a block and one block a
+    problem past that while the largest system, (n + m) x (n + m + 1),
+    fits its 16 KB; past that a launch's workspace holds a slice of that
+    size for each of its blocks, at most one a problem and at most 2^24
+    floats (but one block)."""
+    text = (CSRC / "qp_finish_kernel.cu").read_text()
+    consts = finish_constants()
+    assert consts["MAX_N"] == qpk.MAX_N
+    assert consts["BLOCK_THREADS"] % 32 == 0 and consts["BLOCK_SYSTEM_FLOATS"] == 4096
+    for n in range(1, qpk.MAX_N + 1):
+        assert f"case {n}: QP_FINISH_N({n})" in text or f"default: QP_FINISH_N({n})" in text
+    ws = finish_lib.qp_finish_workspace
+    for n, m in ((2, 7), (2, 10), (2, 12), (3, 10), (1, 14), (2, 1),  # one thread a problem
+                 (2, 13), (3, 11), (1, 15), (8, 40), (2, 61)):      # one block a problem
+        assert ws(2**19, n, m) == 0, (n, m)
+    for n, m in ((2, 62), (3, 118), (3, 153), (2, 300), (8, 600)):
+        per = (n + m) * (n + m + 1)
+        for B in (1, 33, 4096, 2**19):
+            floats = ws(B, n, m)
+            blocks = floats // per
+            assert floats == blocks * per and 1 <= blocks <= B, (n, m, B)
+            assert blocks == min(B, max(1, 2**24 // per)), (n, m, B)
+    assert ws(0, 2, 300) == 0
+
+
+@pytest.mark.parametrize("case,batch,n,m,iters", [
+    ("cbf", 9, 2, 7, 1600),        # the CBF-QP path's shape
+    ("sweep", 300, 2, 10, 400),    # the DPCBF sweep's: 10 blocks, the last ragged
+    ("fleet", 70, 2, 12, 200),     # the DI fleet's, the widest n=2 on chip
+    ("n3", 40, 3, 10, 200),        # the widest n=3 on chip
+    ("n1", 33, 1, 7, 200),
+    ("workspace", 33, 2, 13, 200),  # past the on-chip size: a block a problem
+    ("manipulator", 5, 3, 118, 40),  # systems of 41-54 unknowns in shared memory
+    ("rows300", 3, 2, 300, 8),       # systems of 114-133 unknowns in the workspace
+    ("no_polish", 300, 2, 10, 400),
+    ("mixed", 20, 8, 1000, 40),      # both, 16 blocks looping over 20 problems
+])
+def test_finish_source_on_the_cpu_matches_plain_version(cpu_finish, case, batch, n, m, iters):
+    """The finish kernel's CUDA source built for the CPU, launched through
+    the wrapper, against ``_finish_plain`` on the same iterates: x, y and
+    both residuals bit for bit (the kernel uses +, -, *, /, fmaf and
+    comparisons, in the plain version's order; ``_fma`` rounds once as
+    fmaf does).  The CBF-QP paths' shapes one thread a problem, and one
+    block a problem past them: its system in shared memory, in the
+    workspace, and both in one launch whose first four blocks take two
+    problems each.  There problems 0, 16 and 19 hold 80 consistent equality
+    rows (88 unknowns, in the workspace) and problem 5 holds 40 (48, in
+    shared memory), each polished point kept, so that the large systems'
+    solutions reach x and y; the others hold 20 random rows."""
+    if case in ("sweep", "fleet", "no_polish"):
+        qps = sweep_scale_qps(batch, m - 2, seed=batch + m)
+    elif case == "mixed":
+        qps = interop.qp_from_numpy(*mixed_qps(batch, n, m))
+    else:
+        qps = interop.qp_from_numpy(*(cbf_qps(batch) if case == "cbf"
+                                      else random_qps(m + n, batch, n, m)))
+    s, x, y = iterate(qps, iters)
+    polish = case != "no_polish"
+    got = cpu_finish(*qps, s, x, y, polish)
+    want = qpk._finish_plain(*qps, s, x, y, polish)
+    for g, w in zip(got, want):
+        assert torch.isfinite(w).any()
+        assert torch.equal(g, w)
+    if case == "mixed":
+        ok = qpk._polish_plain(s.P, s.q, s.A, s.l, s.u, x, y, 1e-8, 1e-4)[2]
+        assert ok[[0, 5, 16, 19]].all()
+
+
+def special_problems(m):
+    """Five problems at n=2, built in scaled units (d = e = 1): no active
+    row; every row active; an exactly singular KKT system; a polished point
+    less feasible than the iterate; bounds infinite on either side.  Rows
+    past the first four (``m`` > 4) are free (infinite bounds) and zero."""
+    inf = float("inf")
+    P = torch.tensor([[[1.0, 0.0], [0.0, 1.0]], [[2.0, 0.5], [0.5, 1.0]],
+                      [[-1e-8, 0.0], [0.0, 1.0]], [[1.0, 0.0], [0.0, 1.0]],
+                      [[2.0, 0.0], [0.0, 2.0]]])
+    q = torch.tensor([[-0.5, 0.2], [0.3, -0.7], [0.1, 0.4], [-5.0, 0.0], [-2.0, -2.0]])
+    A = torch.zeros((5, m, 2))
+    A[0, :4] = torch.tensor([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [1.0, -1.0]])
+    A[1, :4] = torch.tensor([[1.0, 0.5], [0.0, 1.0], [-1.0, 2.0], [0.3, -1.0]])
+    A[2, :4] = torch.tensor([[0.0, 1.0], [0.0, 2.0], [0.0, -1.0], [0.0, 0.5]])
+    A[3, :4] = torch.tensor([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [0.5, 1.0]])
+    A[4, :4] = torch.tensor([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [1.0, -1.0]])
+    l = torch.full((5, m), -inf)
+    u = torch.full((5, m), inf)
+    l[:3, :4], u[:3, :4] = -10.0, 10.0
+    l[3, :2] = torch.tensor([0.0, 1.0])
+    u[4, 1:3] = torch.tensor([0.5, 3.0])
+    l[4, 3] = -1.0
+    x = torch.tensor([[0.5, -0.2], [0.4, 0.1], [0.3, 0.1], [1.0, 2.0], [1.0, 0.5]])
+    y = torch.zeros((5, m))
+    y[1, :4] = 1.0  # every row's upper bound active by its multiplier
+    y[2, 0] = 1.0
+    y[3, 0] = -1.0  # row 0's lower bound active by its multiplier; row 1 left inactive
+    y[4, 1] = 0.8
+    ones = torch.ones
+    s = tqp.Scaled(P=P, q=q, A=A, l=l, u=u, d=ones((5, m)), e=ones((5, 2)))
+    return (P, q, A, l, u), s, x, y
+
+
+@pytest.mark.parametrize("m", [4, 14])  # on chip; in the workspace
+def test_finish_special_cases_on_the_cpu(cpu_finish, m):
+    """Problems with no active row, every row active, an exactly singular
+    KKT system (P00 + reg is 0 and no active row has a first column), a
+    polished point rejected as less feasible, and infinite bounds: the CPU
+    build bit for bit against ``_finish_plain``, and each as it should
+    come out: the first and the last kept (y 0 on inactive rows), the
+    singular and the less feasible one left at the iterate."""
+    qps, s, x, y = special_problems(m)
+    got = cpu_finish(*qps, s, x, y, True)
+    want = qpk._finish_plain(*qps, s, x, y, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _, _, ok = qpk._polish_plain(s.P, s.q, s.A, s.l, s.u, x, y, 1e-8, 1e-4)
+    assert ok.tolist() == [True, True, False, False, True]
+    assert torch.equal(got.x[2:4], x[2:4]) and torch.equal(got.y[2:4], y[2:4])
+    assert torch.equal(got.y[0], torch.zeros(m)) and got.y[4, 0] == 0 and got.y[4, 1] > 0
+    assert torch.allclose(got.x[0], torch.tensor([0.5, -0.2]), atol=1e-6)
+    assert torch.allclose(got.x[4], torch.tensor([1.0, 0.5]), atol=1e-6)
+    assert got.prim_res[3] == 0 and got.prim_res[4] < 1e-6
+    if m > 4:  # the free rows change nothing
+        small = cpu_finish(*special_problems(4)[0], *special_problems(4)[1:], True)
+        assert torch.equal(got.x, small.x) and torch.equal(got.prim_res, small.prim_res)
+
+
+@pytest.mark.parametrize("case,batch,n,m,iters", [
+    ("cbf", 64, 2, 7, 1600), ("sweep", 400, 2, 10, 400), ("fleet", 200, 2, 12, 1600),
+    ("random", 64, 3, 10, 1600),
+])
+def test_finish_plain_matches_general_finish(case, batch, n, m, iters):
+    """``_finish_plain`` against ``qp.finish`` on the same iterates, on the
+    problems both solve (primal residual under 1e-4): x within 1e-5,
+    y within 1e-4 (1 + |y|), the primal residual within 1e-6 and the dual
+    within 1e-4 (1 + |terms|).  Tolerances, not bits: the two take the
+    same operations, but ``torch.linalg.solve_ex`` (LAPACK's getrf on the
+    CPU) may take its sums in another order than the kernel's LU, and
+    ``qp.finish`` sums A'y and Ax by ``torch.sum``.  Where the active
+    rows outnumber the variables on an infeasible problem, the system is
+    singular but for reg and the two answers are each its rounding's:
+    those problems are not compared."""
+    if case == "cbf":
+        qps = interop.qp_from_numpy(*cbf_qps(batch))
+    elif case == "random":
+        qps = interop.qp_from_numpy(*random_qps(0, batch, n, m))
+    else:
+        qps = sweep_scale_qps(batch, m - 2, seed=batch)
+    s, x, y = iterate(qps, iters)
+    got = qpk._finish_plain(*qps, s, x, y, True)
+    want = tqp.finish(*qps, s, x, y, True)
+    both = (got.prim_res < 1e-4) & (want.prim_res < 1e-4)
+    assert int(both.sum()) >= 16
+    P, q, A = qps[:3]
+    terms = ((P * got.x[:, None, :]).abs().sum(-1) + q.abs()
+             + (A * got.y[..., None]).abs().sum(-2)).amax(-1)
+    assert (got.x - want.x).abs()[both].max() < 1e-5
+    assert ((got.y - want.y).abs() <= 1e-4 * (1 + want.y.abs()))[both].all()
+    assert (got.prim_res - want.prim_res).abs()[both].max() < 1e-6
+    assert ((got.dual_res - want.dual_res).abs() <= 1e-4 * (1 + terms))[both].all()
+
+
+def test_finish_launch_count_is_registered_and_traced(cpu_lib, cpu_finish, tmp_path,
+                                                      monkeypatch):
+    """``FINISH_LAUNCH_COUNT`` is registered beside ``LAUNCH_COUNT``, so
+    that captures and replays keep it and ``trace_to`` reports its rise in
+    ``port_counters``.  The wrapper's CUDA path, run on the CPU through
+    both kernels' CPU builds, launches the sweep once and the finish once a
+    call, never runs ``qp.finish`` or a plain version, and gives the plain
+    path's answer bit for bit."""
+    from safe_control_tpu_torch import _build
+    from safe_control_tpu_torch.core import graphs
+    from safe_control_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(torch, "sqrt", cuda_on_cpu.ieee_sqrt)
+    qps = sweep_scale_qps(64, 8, seed=2**31 + 23)
+    want = qpk.solve_qp_batch_reference(*qps, iters=400)
+    monkeypatch.setattr(_build, "load_qp_admm_kernel", lambda: cpu_lib)
+
+    def refuse(*a, **k):
+        raise AssertionError("the kernels' path ran qp.finish or a plain version")
+
+    for module, name in ((tqp, "finish"), (tqp, "_finish"), (qpk, "_finish_plain"),
+                         (qpk, "_sweep_plain"), (qpk, "solve_qp_batch_reference")):
+        monkeypatch.setattr(module, name, refuse)
+    assert graphs.COUNTERS[qpk.__name__] == ("LAUNCH_COUNT", "LANE_LAUNCH_COUNT",
+                                             "FINISH_LAUNCH_COUNT")
+    assert (qpk.__name__, "FINISH_LAUNCH_COUNT") in graphs._counts()
+    for name in ("LAUNCH_COUNT", "LANE_LAUNCH_COUNT", "FINISH_LAUNCH_COUNT"):
+        monkeypatch.setattr(qpk, name, 0)
+    with profiling.trace_to(str(tmp_path / "trace")):
+        for calls in (1, 2, 3):
+            got = qpk._solve_cuda(*qps, 400, 1.0, 1e-6, 1.6, True)
+            assert (qpk.LAUNCH_COUNT, qpk.FINISH_LAUNCH_COUNT) == (calls, calls)
+    counters = json.loads((tmp_path / "trace" / "trace.json").read_text())["port_counters"]
+    assert counters[f"{qpk.__name__}.LAUNCH_COUNT"] == 3
+    assert counters[f"{qpk.__name__}.FINISH_LAUNCH_COUNT"] == 3
+    assert counters[f"{qpk.__name__}.LANE_LAUNCH_COUNT"] == 0  # 64 problems: groups
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,n,m,iters", [(2**19, 2, 10, 400), (256, 3, 153, 300),
+                                             (64, 2, 300, 8), (4096, 3, 13, 1600),
+                                             (20, 8, 1000, 40)])
+def test_finish_kernel_matches_plain_version_on_card(cuda_device, batch, n, m, iters):
+    """On a card: the finish kernel against ``_finish_plain`` on B2's
+    iterates, bit for bit: the DPCBF sweep's scale (2^19 problems, n=2,
+    m=10, one thread a problem), and a block a problem at m=153, 300 rows,
+    n=3 m=13, and ``mixed_qps``' systems in shared memory and in the
+    workspace, kept.  One launch a call."""
+    if m == 10:
+        qps = sweep_scale_qps(batch, m - 2, seed=2**31 + 41)
+    elif m == 1000:
+        qps = interop.qp_from_numpy(*mixed_qps(batch, n, m))
+    else:
+        qps = interop.qp_from_numpy(*random_qps(m, batch, n, m))
+    ins = [t.to(cuda_device) for t in qps]
+    s = tqp.equilibrate(*ins)
+    x, y = qpk._sweep_cuda(s.P, s.q, s.A, s.l, s.u, iters, 1.0, 1e-6, 1.6)
+    before = qpk.FINISH_LAUNCH_COUNT
+    got = qpk._finish_cuda(*ins, s, x, y, True)
+    torch.cuda.synchronize()
+    assert qpk.FINISH_LAUNCH_COUNT == before + 1
+    want = qpk._finish_plain(*ins, s, x, y, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,k", [(65536, 8), (4097, 5)])
+def test_finish_kernel_rounds_as_solve_ex_on_card(cuda_device, batch, k):
+    """On a card, at n=2 (where a sum of two terms has one order): the
+    finish kernel's x, y and primal residual equal ``qp.finish``'s, whose
+    polish solves the full masked KKT system by ``torch.linalg.solve_ex``,
+    bit for bit, infeasible problems and degenerate active sets included.
+    The kernel's LU rounds as the batched LU of cuBLAS that solve_ex runs;
+    the general path and the benchmark's plain reference polish by it."""
+    ins = [t.to(cuda_device) for t in sweep_scale_qps(batch, k, seed=2**31 + k)]
+    s = tqp.equilibrate(*ins)
+    x, y = qpk._sweep_cuda(s.P, s.q, s.A, s.l, s.u, 400, 1.0, 1e-6, 1.6)
+    got = qpk._finish_cuda(*ins, s, x, y, True)
+    want = tqp.finish(*ins, s, x, y, True)
+    assert bool((want.prim_res > 1e-3).any())  # infeasible problems among them
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
